@@ -7,21 +7,29 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card and toolchain: name and power limit (nvidia-smi), torch, CUDA;
-  2. build: the CUDA pair kernel (nvcc) and libgenomio (g++) from the
-     checkout's sources, in parallel, with the compiler's register report;
-  3. kernel against its plain PyTorch version on the card, exact equality,
-     dense and 2-bit reads, int32 scores and int8 call codes, over the
-     shape families of the default path, and one read long enough to take
-     the scratch word near its 16-bit limit;
+  2. build: the CUDA kernels sw_pair.cu and sw_banded.cu (nvcc), libgenomio
+     and the band builder band_bounds.cpp (g++) from the checkout's
+     sources, all in parallel, with the compiler's register report;
+  3. each kernel against its plain PyTorch version on the card, exact
+     equality, int32 scores and int8 call codes. sw_pair: dense and 2-bit
+     reads over the shape families of the full path, the interleaved-index
+     and plain-row entries (the TPU kernels K5 and K6), and one read long
+     enough to take the scratch word near its 16-bit limit. sw_banded: the
+     families of the banded path on host-built band bounds (main, bending
+     bands, full bands, empty bands, empty haplotypes, raw bytes, ly=4032,
+     a haplotype wider than 32,767 bases);
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
-     CUDA events: the kernel, the plain version, and the bound, from the
-     instructions per cell in the kernel's SASS (cuobjdump) at the card's
-     instruction issue rate;
-  5. end to end: a seeded 500,000-read dataset through the driver with
-     --backend cuda in the three scoring modes, each repeated with
-     --backend torch; matrices must agree, the kernel must have launched on
-     the cuda runs and never on the torch runs. The CLI entry
-     (python -m vartrix_tpu_torch) runs once on a small dataset.
+     CUDA events: each kernel, its plain version, and its bound, the cells
+     the function needs x the recurrence's instructions per cell (sw_pair's
+     hot loop in SASS, cuobjdump) at the card's instruction issue rate; for
+     sw_banded also its own instructions per cell, the host band
+     construction and the cells and lane slots the band's divergence costs;
+  5. end to end: a seeded 500,000-read dataset through the driver in
+     --sw-mode full and banded, each with --backend cuda in the three
+     scoring modes, each repeated with --backend torch; matrices must agree,
+     each mode's kernel must have launched on its cuda runs and never on the
+     torch runs, and the other mode's kernel never. The CLI entry
+     (python -m vartrix_tpu_torch) runs on a small dataset in both modes.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -45,8 +53,13 @@ HBM_BYTES_PER_S = 3.35e12
 # instruction issue per SM and clock on Hopper: 4 schedulers, each one warp
 # instruction (32 threads) per clock, whatever pipe the instruction uses
 ISSUE_PER_SM_CLK = 4 * 32
-# the instantiation the main path launches: 2-bit reads, int8 call codes
+# the instantiations the paths launch: full, 2-bit reads and int8 call
+# codes; banded, int8 call codes
 MAIN_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1E"
+BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1EE"
+# the SASS instruction that marks one DP cell in each kernel's hot loop:
+# the three-way H maximum with zero
+CELL_OPCODE = "VIMNMX3.RELU"
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
@@ -121,6 +134,21 @@ def make_family(rng, n_reads, lx, ly, *, read_len, hap_len, err=0.01,
     return x, haps, idx_ref, idx_alt
 
 
+def k5_family(rng):
+    """The interleaved-index entry of the chained TPU kernel K5: each read
+    owns two of 2R haplotype rows, listed as idx2 (ref, alt, ref, alt, ...)
+    in a shuffled order; idx_ref = idx2[0::2], idx_alt = idx2[1::2]."""
+    import numpy as np
+
+    x, haps, ir, ia = make_family(rng, 4096, 16, 48, read_len=(1, 16),
+                                  hap_len=(1, 48))
+    rows = haps[np.stack([ir, ia], axis=1).reshape(-1)]
+    idx2 = rng.permutation(len(rows)).astype(np.int32)
+    shuffled = np.empty_like(rows)
+    shuffled[idx2] = rows
+    return x, shuffled, idx2[0::2].copy(), idx2[1::2].copy()
+
+
 def mixed_gap_family():
     """Adversarial gap corners: one read base against t haplotype bases."""
     import numpy as np
@@ -185,6 +213,57 @@ def near_limit_family(rng):
     return read[None, :], np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
 
 
+def unseeded_family(rng, n_reads, lx, ly):
+    """Reads over A/C with a C at every fifth base against haplotypes over
+    A/G: no shared 6-mer, so every band is empty and every score 0."""
+    import numpy as np
+
+    x = rng.choice(np.frombuffer(b"AC", np.uint8), (n_reads, lx))
+    x[:, ::5] = ord("C")
+    x[np.arange(lx)[None, :] >= rng.integers(6, lx + 1, n_reads)[:, None]] = 0
+    haps = rng.choice(np.frombuffer(b"AG", np.uint8), (2 * n_reads, ly))
+    haps[np.arange(ly)[None, :] >= rng.integers(6, ly + 1, 2 * n_reads)[
+        :, None]] = 1
+    idx = np.arange(n_reads, dtype=np.int32)
+    return x, haps, 2 * idx, 2 * idx + 1
+
+
+def wide_family(rng):
+    """One 150-base read copied, with two substitutions, from bases
+    36,000-36,150 of a 40,000-base haplotype (the alt has one more
+    substitution): its band lies past the int16 range of 32,767."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    hap = rng.choice(bases, 40000)
+    read = hap[36000:36150].copy()
+    for p in (40, 100):
+        read[p] = bases[(np.searchsorted(bases, read[p]) + 1) % 4]
+    alt = hap.copy()
+    alt[36075] = bases[(np.searchsorted(bases, alt[36075]) + 2) % 4]
+    x = np.zeros((1, 160), np.uint8)
+    x[0, :150] = read
+    idx = np.zeros(1, np.int32)
+    return x, np.stack([hap, alt]), idx, idx + 1
+
+
+def strip_columns(jlo, jhi, strip=16):
+    """int64 [strips, P] columns the banded kernel visits per 16-row strip
+    of each problem: [min jlo, max jhi) over the strip's in-band rows."""
+    import numpy as np
+
+    lx, P = jlo.shape
+    n = -(-lx // strip) * strip
+    lo = np.full((n, P), np.iinfo(np.int64).max)
+    hi = np.zeros((n, P), np.int64)
+    band = jlo < jhi
+    lo[:lx] = np.where(band, jlo, lo[:lx])
+    hi[:lx] = np.where(band, jhi, 0)
+    lo = lo.reshape(-1, strip, P).min(axis=1)
+    hi = hi.reshape(-1, strip, P).max(axis=1)
+    return np.maximum(hi - lo, 0)
+
+
 # ---------------------------------------------------------------- phases
 
 
@@ -207,36 +286,41 @@ def phase_card():
 
 
 def phase_build():
+    """Builds every library at once; returns the two kernels' paths."""
     from vartrix_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        kern = ex.submit(_build.kernel_library)
-        gio = ex.submit(_build.genomio_library)
-        kern_path, gio_path = kern.result(), gio.result()
-    log(f"build: sw_pair.cu + genomio.cpp in {time.perf_counter() - t0:.2f}s")
+    builders = (_build.kernel_library, _build.banded_kernel_library,
+                _build.genomio_library, _build.band_bounds_library)
+    with ThreadPoolExecutor(max_workers=len(builders)) as ex:
+        futures = [ex.submit(b) for b in builders]
+        paths = [f.result() for f in futures]
+    log(f"build: sw_pair.cu + sw_banded.cu + genomio.cpp + band_bounds.cpp "
+        f"in {time.perf_counter() - t0:.2f}s")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"  nvcc: {nvcc[-1]}")
-    for line in _build.build_log(kern_path).splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            log(f"  ptxas: {line.strip()}")
-    return kern_path, gio_path
+    for path in paths[:2]:
+        for line in _build.build_log(path).splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                log(f"  ptxas {os.path.basename(path)}: {line.strip()}")
+    return paths[0], paths[1]
 
 
-def phase_sass(kern_path):
+def phase_sass(kern_path, symbol):
     """Instructions the compiled kernel issues per DP cell, read from the
-    SASS of the main instantiation's hot loop: the innermost loop holding
-    the most three-way H maxima (VIMNMX3.RELU, one per cell)."""
+    SASS of one instantiation's hot loop: the loop holding the most
+    CELL_OPCODE instructions, one per cell."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = (shutil.which("cuobjdump")
             or os.path.join(cuda_home, "bin", "cuobjdump"))
     sass = subprocess.run([tool, "-sass", kern_path], capture_output=True,
                           text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", sass)
-    body = [f for f in funcs if f.startswith("_Z") and MAIN_KERNEL_SYMBOL in f]
+    body = [f for f in funcs if f.startswith("_Z") and symbol in f]
     if len(body) != 1:
-        fail(f"cuobjdump shows no single {MAIN_KERNEL_SYMBOL} function")
+        fail(f"cuobjdump shows no single {symbol} function")
     instrs = [(int(a, 16), op.strip()) for a, op in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[0])]
     loops = []
@@ -244,7 +328,7 @@ def phase_sass(kern_path):
         m = re.search(r"\bBRA 0x([0-9a-f]+)", op)
         if m and int(m.group(1), 16) < addr:
             loop = [o for a, o in instrs if int(m.group(1), 16) <= a <= addr]
-            cells = sum("VIMNMX3.RELU" in o for o in loop)
+            cells = sum(CELL_OPCODE in o for o in loop)
             loops.append((-cells, len(loop), loop))
     if not loops or min(loops)[0] == 0:
         fail("no DP loop found in the kernel's SASS")
@@ -252,7 +336,7 @@ def phase_sass(kern_path):
     cells = -neg_cells
     opcodes = collections.Counter(
         re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in loop)
-    log(f"sass: {MAIN_KERNEL_SYMBOL} hot loop: {n_instr} instructions for "
+    log(f"sass: {symbol} hot loop: {n_instr} instructions for "
         f"{cells} cells = {n_instr / cells:.4f} per cell; opcodes "
         + ", ".join(f"{k} {v}" for k, v in opcodes.most_common()))
     return n_instr / cells
@@ -280,6 +364,7 @@ def phase_equality(rng):
         "n_eq_lower": make_family(rng, 4096, MAIN_LX, MAIN_LY,
                                   read_len=(140, 150), hap_len=(180, 224),
                                   odd_bytes=True),
+        "k5_idx2": k5_family(rng),
     }
     worst = 0
     for name, (x, haps, ir, ia) in families.items():
@@ -298,7 +383,7 @@ def phase_equality(rng):
             err = int((got - plain).abs().max().item()) if len(x) else 0
             bad = int((codes != plain_codes).sum().item())
             worst = max(worst, err)
-            log(f"kernel {name:11s} {form:5s} R={len(x)} lx={x.shape[1]} "
+            log(f"sw_pair {name:11s} {form:5s} R={len(x)} lx={x.shape[1]} "
                 f"ly={haps.shape[1]}: max|err|={err} code mismatches={bad}")
             if err or bad:
                 fail(f"kernel disagrees with the plain version on {name} "
@@ -311,22 +396,79 @@ def phase_equality(rng):
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     got = sw_cuda.pair_scores(xt, ht, irt, iat)[:, 0].tolist()
     plain = sw_torch.pair_scores(xt, ht, irt, iat)[:, 0].tolist()
-    log(f"kernel near_limit  dense R=1 lx={x.shape[1]} ly={haps.shape[1]}: "
+    log(f"sw_pair near_limit  dense R=1 lx={x.shape[1]} ly={haps.shape[1]}: "
         f"kernel {got}, plain {plain}, known {known}")
     if not got == plain == known:
         fail("kernel disagrees near the scratch word's limit")
     worst = max(worst, *(abs(a - b) for a, b in zip(got, plain)))
-    # the plain (x, y) call: the same kernel with identity indices
+    # the plain (x, y) call of K6: the same kernel with identity indices
     x, haps, ir, ia = wide
     xt = torch.from_numpy(x).cuda()
     yt = torch.from_numpy(haps[ir]).cuda()
     got = sw_cuda.batch_scores(xt, yt)
     exp = sw_torch.sw_scores(xt, yt)
     err = int((got - exp).abs().max().item())
-    log(f"kernel batch rows  dense B={len(x)} ly={haps.shape[1]}: "
+    log(f"sw_pair k6_rows     dense B={len(x)} ly={haps.shape[1]}: "
         f"max|err|={err}")
     if err:
         fail("batch_scores disagrees with the plain version")
+    return worst
+
+
+def phase_banded_equality(rng, threads):
+    """Banded kernel against its plain version on every family, on bounds
+    built by the host band builder; returns max |err|."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import (sw_banded_torch, sw_cuda, sw_native,
+                                       sw_torch)
+
+    families = {
+        "main": make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                            read_len=(140, 150), hap_len=(180, 224)),
+        "indel_heavy": make_family(rng, 4096, 64, 96, read_len=(40, 64),
+                                   hap_len=(60, 96), err=0.03, indels=True),
+        "short_pairs": make_family(rng, 2048, 16, 32, read_len=(1, 8),
+                                   hap_len=(1, 12)),
+        "unseeded": unseeded_family(rng, 2048, 48, 64),
+        "empty_haps": make_family(rng, 2048, 48, 64, read_len=(20, 48),
+                                  hap_len=(30, 64), empty_frac=0.2),
+        "n_eq_lower": make_family(rng, 4096, MAIN_LX, MAIN_LY,
+                                  read_len=(140, 150), hap_len=(180, 224),
+                                  odd_bytes=True),
+        "ly_4032": make_family(rng, 4096, 160, 4032, read_len=(140, 150),
+                               hap_len=(3800, 4032)),
+        "wide_40000": wide_family(rng),
+    }
+    worst = 0
+    for name, (x, haps, ir, ia) in families.items():
+        jlo, jhi = sw_native.band_bounds(x, haps, ir, ia, threads)
+        args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda") + tuple(
+            torch.from_numpy(b).cuda() for b in (jlo, jhi))
+        plain = sw_banded_torch.banded_pair_scores(*args)
+        plain_codes = sw_torch.calls_from_scores(plain)
+        got = sw_cuda.banded_pair_scores(*args)
+        codes = sw_cuda.banded_pair_calls(*args)
+        torch.cuda.synchronize()
+        err = int((got - plain).abs().max().item())
+        bad = int((codes != plain_codes).sum().item())
+        worst = max(worst, err)
+        width = jhi.astype(np.int64) - jlo
+        empty = int((width.sum(axis=0) == 0).sum())
+        log(f"sw_banded {name:11s} R={len(x)} lx={x.shape[1]} "
+            f"ly={haps.shape[1]}: max|err|={err} code mismatches={bad}; "
+            f"in-band cells {int(width.sum())}, max jhi {int(jhi.max())}, "
+            f"problems with an empty band {empty}/{width.shape[1]}, "
+            f"max score {int(plain.max().item())}")
+        if err or bad:
+            fail(f"sw_banded disagrees with the plain version on {name}")
+        if name == "unseeded" and (empty != width.shape[1]
+                                   or plain.any().item()):
+            fail("unseeded pairs have a band or a score")
+        if name == "wide_40000" and (jhi.max() <= 32767
+                                     or plain.min().item() < 100):
+            fail("the wide family's band or score is not the expected one")
     return worst
 
 
@@ -392,6 +534,84 @@ def phase_timing(rng, instr_per_cell, clock_hz):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def phase_banded_timing(rng, instr_per_cell, banded_instr_per_cell,
+                        clock_hz, threads):
+    """Banded kernel and plain times at the main bucket shape, the host
+    band construction, and the bound: the in-band cells x the recurrence's
+    own instructions per cell (sw_pair's hot loop, `instr_per_cell`; a scan
+    that starts and stops each row at its band edges needs no per-cell band
+    test), over the card's instruction issue rate, against the bytes
+    (reads, haplotypes, indices, bounds in, codes out) over HBM bandwidth.
+    Also the banded kernel's own instructions per cell, the cells it visits
+    (whole strip column ranges) and the share of lane slots its warps leave
+    idle."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_banded_torch, sw_cuda, sw_native
+
+    x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                                  read_len=(140, 150), hap_len=(180, 224))
+    sw_native.band_bounds(x[:64], haps, ir[:64], ia[:64], threads)  # load
+    n1 = 4096
+    t0 = time.perf_counter()
+    sw_native.band_bounds(x[:n1], haps, ir[:n1], ia[:n1], 1)
+    one_us = (time.perf_counter() - t0) / (2 * n1) * 1e6
+    t0 = time.perf_counter()
+    jlo, jhi = sw_native.band_bounds(x, haps, ir, ia, threads)
+    host_s = time.perf_counter() - t0
+    pairs = 2 * MAIN_READS
+    args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda") + tuple(
+        torch.from_numpy(b).cuda() for b in (jlo, jhi))
+    ms = time_cuda(lambda: sw_cuda.banded_pair_calls(*args), 3, 15)
+    plain_ms = time_cuda(lambda: sw_banded_torch.banded_pair_calls(*args),
+                         1, 3)
+    in_band = int((jhi.astype(np.int64) - jlo).sum())
+    cols = strip_columns(jlo, jhi)
+    visited = 16 * int(cols.sum())
+    warp_cols = int(cols.reshape(cols.shape[0], -1, 32).max(axis=2).sum())
+    idle = 1 - cols.sum() / (32 * warp_cols)
+    full = true_cells(x, haps, ir, ia)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_per_s = sms * ISSUE_PER_SM_CLK * clock_hz
+    ops_ms = in_band * instr_per_cell / issue_per_s * 1e3
+    nbytes = (x.nbytes + haps.nbytes + ir.nbytes + ia.nbytes + jlo.nbytes
+              + jhi.nbytes + MAIN_READS)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    # what the kernel issues: every visited cell at its own loop's count
+    issued_ms = visited * banded_instr_per_cell / issue_per_s * 1e3
+    log(f"timing sw_banded at lx={MAIN_LX} ly={MAIN_LY}, {pairs} pairs "
+        f"(dense reads, int8 codes): {ms:.4f} ms ({in_band / ms / 1e6:.1f} "
+        f"G in-band cells/s); plain {plain_ms:.3f} ms")
+    log(f"timing sw_banded cells: {in_band} in band "
+        f"({in_band / pairs:.1f} per pair; full SW needs {full}, "
+        f"{100 * in_band / full:.1f} %); the kernel visits {visited} "
+        f"({100 * visited / in_band:.1f} % of in band) in whole strip "
+        f"column ranges; its warps leave {100 * idle:.1f} % of lane slots "
+        f"idle (each strip runs as long as its widest lane)")
+    log(f"timing sw_banded bound: {in_band} in-band cells x "
+        f"{instr_per_cell:.4f} instructions per cell (the recurrence, "
+        f"sw_pair's SASS) / {issue_per_s:.6g} instructions/s = "
+        f"{ops_ms:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = "
+        f"{bytes_ms:.4f} ms; bound {bound_ms:.4f} ms, "
+        f"{100 * bound_ms / ms:.1f} % of the kernel's time; library_ms null: "
+        f"no PyTorch call computes Smith-Waterman")
+    log(f"timing sw_banded issue (informative): its hot loop issues "
+        f"{banded_instr_per_cell:.4f} instructions per cell (SASS; the "
+        f"per-cell band test and selects add "
+        f"{banded_instr_per_cell - instr_per_cell:.4f}); {visited} visited "
+        f"cells x {banded_instr_per_cell:.4f} / {issue_per_s:.6g} = "
+        f"{issued_ms:.4f} ms at full issue, {100 * issued_ms / ms:.1f} % of "
+        f"the kernel's time")
+    log(f"timing band construction on the host: {host_s * 1e3:.1f} ms for "
+        f"{pairs} pairs on {threads} threads = {host_s / pairs * 1e6:.3f} us "
+        f"per pair; one thread {one_us:.3f} us per pair; bounds "
+        f"{jlo.nbytes + jhi.nbytes} bytes per launch to the card")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def read_mtx(path):
     """(shape, {(row, col): value}) of a Matrix Market file."""
     with open(path) as f:
@@ -413,11 +633,37 @@ def csr_equal(a, b):
                for k in ea)
 
 
+def entries_differing(a, b):
+    """Entries (row, col) whose values differ between two .mtx files."""
+    (_, ea), (_, eb) = read_mtx(a), read_mtx(b)
+    return sum(1 for k in ea.keys() | eb.keys()
+               if not (k in ea and k in eb and (
+                   ea[k] == eb[k]
+                   or (math.isnan(ea[k]) and math.isnan(eb[k])))))
+
+
 def phase_e2e(work):
+    """Both paths, full then banded, each in the three modes with --backend
+    cuda and then torch. Every kernel's count is zeroed just before each
+    (path, backend) group and read just after; returns the launches of the
+    full path's cuda runs (sw_pair) and the banded path's (sw_banded)."""
     from vartrix_tpu_torch import driver
-    from vartrix_tpu_torch.ops import sw_cuda
+    from vartrix_tpu_torch.ops import sw_cuda, sw_native
     from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
+    # host band construction inside `score`: the backend calls
+    # sw_native.band_bounds once per chunk; time those calls
+    band = {"s": 0.0, "pairs": 0}
+    band_bounds = sw_native.band_bounds
+
+    def timed_band_bounds(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = band_bounds(*args, **kwargs)
+        band["s"] += time.perf_counter() - t0
+        band["pairs"] += out[0].shape[1]
+        return out
+
+    sw_native.band_bounds = timed_band_bounds
     t0 = time.perf_counter()
     data = generate_dataset(os.path.join(work, "e2e"), SynthConfig(**E2E_CFG))
     n_reads = data["n_reads"]
@@ -427,54 +673,74 @@ def phase_e2e(work):
              "alt_frac": ["-s", "alt_frac"]}
     backends = {"cuda": ["--backend", "cuda"],
                 "torch": ["--backend", "torch", "--device", "cuda"]}
+    own = {"full": "sw_pair", "banded": "sw_banded"}
     outs = {}
     launches = {}
-    for be, be_args in backends.items():
-        sw_cuda.LAUNCHES = 0
-        for mode, mode_args in modes.items():
-            tag = f"{mode}_{be}"
-            out = os.path.join(work, f"{tag}.mtx")
-            ref = os.path.join(work, f"{tag}_ref.mtx")
-            mj = os.path.join(work, f"{tag}.json")
-            argv = ["-v", data["vcf"], "-b", data["bam"], "-f", data["fasta"],
-                    "-c", data["barcodes"], "-o", out, "--ref-matrix", ref,
-                    "--threads", str(os.cpu_count() or 1),
-                    "--metrics-json", mj] + mode_args + be_args
-            t0 = time.perf_counter()
-            driver._main(argv)
-            dt = time.perf_counter() - t0
-            with open(mj) as f:
-                payload = json.load(f)
-            shape = payload["matrix"]["shape"]
-            if shape != [E2E_CFG["n_variants"], E2E_CFG["n_cells"]]:
-                fail(f"{tag}: matrix shape {shape}")
-            log(f"e2e {tag}: {dt:.3f}s, {n_reads / dt:.0f} reads/s, nnz "
-                f"{payload['matrix']['nnz']}, launches "
-                f"{payload['kernel_launches']['sw_pair']}, phases "
-                f"{payload['phase_seconds']}")
-            outs[tag] = (out, ref)
-        launches[be] = sw_cuda.LAUNCHES
-    log(f"e2e: sw_pair launches over the cuda runs {launches['cuda']}, "
-        f"over the torch runs {launches['torch']}")
-    if launches["cuda"] <= 0:
-        fail("the --backend cuda runs never launched the kernel")
-    if launches["torch"] != 0:
-        fail("the --backend torch runs launched the kernel")
+    for sw_mode in own:
+        for be, be_args in backends.items():
+            sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
+            for mode, mode_args in modes.items():
+                tag = f"{sw_mode}_{mode}_{be}"
+                out = os.path.join(work, f"{tag}.mtx")
+                ref = os.path.join(work, f"{tag}_ref.mtx")
+                mj = os.path.join(work, f"{tag}.json")
+                argv = ["-v", data["vcf"], "-b", data["bam"], "-f",
+                        data["fasta"], "-c", data["barcodes"], "-o", out,
+                        "--ref-matrix", ref, "--sw-mode", sw_mode,
+                        "--threads", str(os.cpu_count() or 1),
+                        "--metrics-json", mj] + mode_args + be_args
+                band["s"], band["pairs"] = 0.0, 0
+                t0 = time.perf_counter()
+                driver._main(argv)
+                dt = time.perf_counter() - t0
+                with open(mj) as f:
+                    payload = json.load(f)
+                shape = payload["matrix"]["shape"]
+                if shape != [E2E_CFG["n_variants"], E2E_CFG["n_cells"]]:
+                    fail(f"{tag}: matrix shape {shape}")
+                score_s = payload["phase_seconds"]["score"]
+                log(f"e2e {tag}: {dt:.3f}s, {n_reads / dt:.0f} reads/s, nnz "
+                    f"{payload['matrix']['nnz']}, launches "
+                    f"{payload['kernel_launches']}, phases "
+                    f"{payload['phase_seconds']}"
+                    + (f"; band construction {band['s']:.3f}s for "
+                       f"{band['pairs']} pairs, "
+                       f"{100 * band['s'] / score_s:.1f} % of score"
+                       if sw_mode == "banded" else ""))
+                outs[sw_mode, mode, be] = (out, ref)
+            launches[sw_mode, be] = {"sw_pair": sw_cuda.LAUNCHES,
+                                     "sw_banded": sw_cuda.BANDED_LAUNCHES}
+            log(f"e2e {sw_mode} {be}: launches over the three runs "
+                f"{launches[sw_mode, be]}")
+    for sw_mode, kernel in own.items():
+        for be in backends:
+            for name, n in launches[sw_mode, be].items():
+                if (n > 0) != (be == "cuda" and name == kernel):
+                    fail(f"--sw-mode {sw_mode} --backend {be}: {name} "
+                         f"launched {n} times")
+        for mode in modes:
+            a, b = outs[sw_mode, mode, "cuda"], outs[sw_mode, mode, "torch"]
+            ok = csr_equal(a[0], b[0])
+            if mode == "coverage_umi":
+                ok = ok and csr_equal(a[1], b[1])
+            log(f"e2e {sw_mode} {mode}: cuda == torch (CSR, NaN-aware): {ok}")
+            if not ok:
+                fail(f"{sw_mode} {mode}: the kernel's matrices differ from "
+                     "the plain version's")
+    sw_native.band_bounds = band_bounds
     for mode in modes:
-        a, b = outs[f"{mode}_cuda"], outs[f"{mode}_torch"]
-        ok = csr_equal(a[0], b[0])
-        if mode == "coverage_umi":
-            ok = ok and csr_equal(a[1], b[1])
-        log(f"e2e {mode}: cuda == torch (CSR, NaN-aware): {ok}")
-        if not ok:
-            fail(f"{mode}: the kernel's matrices differ from the plain "
-                 "version's")
-    return launches["cuda"]
+        a, b = outs["banded", mode, "cuda"], outs["full", mode, "cuda"]
+        log(f"e2e {mode}: banded vs full, entries differing: matrix "
+            f"{entries_differing(a[0], b[0])}"
+            + (f", ref matrix {entries_differing(a[1], b[1])}"
+               if mode == "coverage_umi" else ""))
+    return (launches["full", "cuda"]["sw_pair"],
+            launches["banded", "cuda"]["sw_banded"])
 
 
 def phase_cli(work):
-    """The user's entry point on a small dataset, against the plain
-    version on the CPU."""
+    """The user's entry point on a small dataset, in both --sw-mode values,
+    against the plain version on the CPU."""
     from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
     data = generate_dataset(os.path.join(work, "small"), SynthConfig(
@@ -483,18 +749,22 @@ def phase_cli(work):
     base = ["-v", data["vcf"], "-b", data["bam"], "-f", data["fasta"],
             "-c", data["barcodes"], "-s", "alt_frac", "--ref-matrix",
             os.path.join(work, "cli_ref.mtx")]
-    out_gpu = os.path.join(work, "cli_gpu.mtx")
-    out_cpu = os.path.join(work, "cli_cpu.mtx")
-    for out, extra in ((out_gpu, []),
-                       (out_cpu, ["--device", "cpu", "--backend", "torch"])):
-        subprocess.run([sys.executable, "-m", "vartrix_tpu_torch", *base,
-                        "-o", out, *extra], cwd=HERE, check=True, timeout=300)
-    with open(out_gpu, "rb") as f, open(out_cpu, "rb") as g:
-        same = f.read() == g.read()
-    log(f"cli: python -m vartrix_tpu_torch on the card == plain on the CPU "
-        f"(bytes): {same}")
-    if not same:
-        fail("the CLI's kernel run differs from the CPU plain run")
+    for sw_mode in ("full", "banded"):
+        out_gpu = os.path.join(work, f"cli_{sw_mode}_gpu.mtx")
+        out_cpu = os.path.join(work, f"cli_{sw_mode}_cpu.mtx")
+        for out, extra in ((out_gpu, []),
+                           (out_cpu, ["--device", "cpu", "--backend",
+                                      "torch"])):
+            subprocess.run([sys.executable, "-m", "vartrix_tpu_torch", *base,
+                            "-o", out, "--sw-mode", sw_mode, *extra],
+                           cwd=HERE, check=True, timeout=300)
+        with open(out_gpu, "rb") as f, open(out_cpu, "rb") as g:
+            same = f.read() == g.read()
+        log(f"cli: python -m vartrix_tpu_torch --sw-mode {sw_mode} on the "
+            f"card == plain on the CPU (bytes): {same}")
+        if not same:
+            fail(f"the CLI's --sw-mode {sw_mode} kernel run differs from the "
+                 "CPU plain run")
 
 
 def main():
@@ -512,34 +782,48 @@ def main():
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     card, clock_hz = phase_card()
-    kern_path, _ = phase_build()
-    instr_per_cell = phase_sass(kern_path)
+    kern_path, banded_path = phase_build()
+    instr_per_cell = phase_sass(kern_path, MAIN_KERNEL_SYMBOL)
+    banded_instr_per_cell = phase_sass(banded_path, BANDED_KERNEL_SYMBOL)
+    threads = os.cpu_count() or 1
     rng = np.random.default_rng(2024)
     worst = phase_equality(rng)
+    banded_worst = phase_banded_equality(rng, threads)
     timing = phase_timing(rng, instr_per_cell, clock_hz)
+    banded_timing = phase_banded_timing(rng, instr_per_cell,
+                                        banded_instr_per_cell, clock_hz,
+                                        threads)
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        launches = phase_e2e(work)
+        launches, banded_launches = phase_e2e(work)
         phase_cli(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"sw_pair: {timing['ms']:.4f} ms, plain {timing['plain_ms']:.3f} ms, "
-        f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}), "
-        f"library_ms null, {launches} launches on the main path")
+    kernels = [
+        ("sw_pair", "vartrix_tpu_torch/csrc/sw_pair.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:55 (K1), :795 (K2), :1325 (K3), "
+         ":1645 (K5); vartrix_tpu/ops/sw_pallas.py:52 (K6)",
+         launches, worst, timing),
+        ("sw_banded", "vartrix_tpu_torch/csrc/sw_banded.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:1836 (K4)",
+         banded_launches, banded_worst, banded_timing),
+    ]
+    record = {"kernels": []}
+    for name, source, replaces, n, err, t in kernels:
+        log(f"{name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library_ms null, "
+            f"{n} launches on its path")
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "library_note": "no PyTorch call computes Smith-Waterman",
+        })
     log(f"total {time.perf_counter() - t_start:.1f}s")
-    record = {"kernels": [{
-        "name": "sw_pair", "route": "cuda",
-        "source": "vartrix_tpu_torch/csrc/sw_pair.cu",
-        "replaces": "vartrix_tpu/ops/sw_pallas_v2.py:55 (K1), :795 (K2), "
-                    ":1325 (K3)",
-        "launches": launches, "max_abs_err": worst,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None,
-        "library_note": "no PyTorch call computes Smith-Waterman",
-    }]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -92,7 +92,7 @@ def test_cuda_backend_on_cpu_refused(tmp_path, data):
 
 @pytest.mark.parametrize("extra", [
     ["--host", "python"], ["--stream", "2"], ["--fetch", "regions"],
-    ["--sw-mode", "banded"], ["--device-agg"], ["--mesh-devices", "2"],
+    ["--device-agg"], ["--mesh-devices", "2"],
     ["--distributed", "localhost:1234,2,0"], ["--checkpoint-dir", "ck"],
     ["--profile-dir", "prof"],
 ], ids=lambda a: a[0])

@@ -12,8 +12,9 @@ import torch
 
 from vartrix_tpu.core.agg_numpy import codes_from_scores
 from vartrix_tpu.ops.sw_numpy import sw_score_single
-from vartrix_tpu.ops.sw_pallas import _on_tpu
-from vartrix_tpu.ops.sw_pallas_v2 import (_sw_pair_chained, _sw_pair_quad,
+from vartrix_tpu.ops.sw_pallas import _on_tpu, sw_scores_batch_tpu
+from vartrix_tpu.ops.sw_pallas_v2 import (_sw_pair_chained, _sw_pair_chainN,
+                                          _sw_pair_quad,
                                           _sw_pair_quad_calls, _unpack2,
                                           sw_calls_pair_quad_tpu,
                                           sw_scores_batch_tpu_v2,
@@ -128,6 +129,52 @@ def test_batch_rows_match_jax():
     exp = sw_scores_batch_tpu_v2(xs, ys)
     got = sw_cuda.batch_scores(torch.from_numpy(xs), torch.from_numpy(ys))
     np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_k6_plain_rows_match_jax_v1_kernel():
+    # K6, the v1 kernel of plain (x, y) rows (sw_pallas.py `_sw_kernel`):
+    # its counterpart is batch_scores, the pair kernel with identity indices
+    rng = np.random.default_rng(11)
+    rows_x, rows_y = [], []
+    for _ in range(40):
+        lx, ly = int(rng.integers(1, 41)), int(rng.integers(1, 57))
+        xb = rng.choice(BASES, lx)
+        yb = rng.choice(BASES, ly)
+        if rng.random() < 0.4 and ly > 8:
+            s = int(rng.integers(0, ly - 4))
+            m = min(lx, ly - s)
+            yb[s : s + m] = xb[:m]
+        rows_x.append(xb.tobytes())
+        rows_y.append(yb.tobytes())
+    xs, ys = pack_rows(rows_x, 40, 0), pack_rows(rows_y, 56, 1)
+    exp = sw_scores_batch_tpu(xs, ys)
+    got = sw_cuda.batch_scores(torch.from_numpy(xs), torch.from_numpy(ys))
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_k5_chain_n_matches_jax():
+    # K5, the nr-read chain kernel (sw_pallas_v2.py `_sw_kernel_v7`) on
+    # tests/test_sw.py's family: interleaved (ref, alt) rows idx2 are the
+    # pair entry's idx_ref = idx2[0::2], idx_alt = idx2[1::2]
+    lx, ly, nr, R = 16, 48, 4, 512
+    rng = np.random.default_rng(41)
+    x = np.zeros((R, lx), np.uint8)
+    haps = np.ones((2 * R, ly), np.uint8)
+    for i in range(R):
+        xl = int(rng.integers(1, lx + 1))
+        x[i, :xl] = rng.choice(BASES, xl)
+        for w in range(2):
+            yl = int(rng.integers(1, ly + 1))
+            hap = rng.choice(BASES, yl)
+            if rng.random() < 0.5 and yl > xl:
+                s = int(rng.integers(0, yl - xl + 1))
+                hap[s : s + xl] = x[i, :xl]
+            haps[2 * i + w, :yl] = hap
+    idx2 = rng.permutation(2 * R).astype(np.int32)
+    exp = np.asarray(_sw_pair_chainN(x, haps, idx2, lx=lx, ly=ly, nr=nr,
+                                     interpret=not _on_tpu()))
+    np.testing.assert_array_equal(
+        port_pair(x, haps, idx2[0::2], idx2[1::2]), exp)
 
 
 def test_mixed_gap_adversarial_exact():

@@ -87,8 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Alignment scoring: 'full' (exact unbanded SW — the "
                         "default; strictly >= banded scores) or 'banded' "
                         "(k-mer chained band, k=6 w=20, reproducing the "
-                        "reference tool's rust-bio banding behavior; not yet "
-                        "ported)")
+                        "reference tool's rust-bio banding behavior)")
     p.add_argument("--host", choices=["auto", "native", "python"], default="auto",
                    help="Host-side BAM runtime: native columnar decoder "
                         "(libgenomio C++; 'python' is not yet ported)")

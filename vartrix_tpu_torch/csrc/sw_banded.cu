@@ -1,0 +1,230 @@
+// Banded affine-gap local Smith-Waterman scores of (read, haplotype)
+// problems, one problem per thread, for Hopper (sm_90a): the DP of
+// --sw-mode banded.
+//
+// Replaces the TPU kernel of that path, vartrix_tpu/ops/sw_pallas_v2.py:1836
+// `_sw_kernel_v4_banded` (entry `_sw_banded_pairs`, l.1907): the full
+// anti-diagonal DP with every cell masked by its read row's band. Each read
+// row i carries one column interval [jlo[i], jhi[i]) built on the host
+// (csrc/band_bounds.cpp, the reference tool's chained k-mer band). Cells in
+// the band follow the recurrence of csrc/sw_pair.cu:
+//   E[i][j] = max(H[i][j-1] - 6, E[i][j-1] - 1)
+//   F[i][j] = max(H[i-1][j] - 6, F[i-1][j] - 1)
+//   H[i][j] = max(H[i-1][j-1] + s(x[i], y[j]), E, F, 0)
+// and cells out of the band read H = 0, E = NEG, F = NEG, the boundary of
+// the native banded aligner (native/swlib.cpp banded_sw_chained). Any E or
+// F <= -5 acts as NEG (the next cell's gap then opens from H >= 0), so the
+// kernel stores -6 for both. Bytes compare raw; reads pad with 0 and
+// haplotypes with 1. With `codes` set, the ref and alt scores of each read
+// reduce to one int8 call code (0/1/2/3, MIN_SCORE 25) as in sw_pair.cu.
+//
+// Layout, carried from sw_pair.cu. A thread sweeps the haplotype once per
+// strip of S = 16 read rows, holding the strip's read bases, per-row H and
+// E, and the rows' bounds in registers; the bottom row's (H, F + 6) of each
+// column goes to the next strip through global scratch [column][problem],
+// one 32-bit word (0 <= H, F + 6 < 65536 while min(lx, ly) < 65536; the
+// wrapper refuses more). The K4 layout (128 lanes per diagonal, the
+// reversed y buffer) hid the TPU's wavefront ramp and is not carried over.
+//
+// What the band buys. A strip visits only the columns [min jlo, max jhi)
+// of its rows, and masks each cell by its own row's interval; strips with
+// no in-band row are skipped. A strip may reach columns the strip above
+// never visited: the previous strip's visited range stays in two registers,
+// and outside it the strip reads (H, F) = (0, NEG) instead of scratch, so
+// scratch is never cleared. The row scan starts at the strip's first
+// column with H = 0 and E = NEG on its left, exact because that column is
+// left of every row's band. Bounds load per strip from a [row][problem]
+// layout, so a warp's 32 loads of one row coalesce.
+//
+// Bound. Like sw_pair.cu the work is integer instructions, bounded by
+// instruction issue (4 warp instructions per SM and clock). The function
+// needs the in-band cells at the recurrence's own cost per cell, that of
+// sw_pair.cu's hot loop: a scan that starts and stops each row at its band
+// edges tests nothing per cell. This design's per-cell band test (two
+// compares) and three selects are overhead on top of that bound;
+// chip_smoke.py reads both kernels' instructions per cell from
+// cuobjdump -sass. Lanes of a warp hold problems with different column
+// ranges, so a warp runs as long as its widest lane in each strip; the
+// simple design accepts that divergence (chip_smoke.py reports the share
+// of lane slots it leaves idle).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMatch = 1;
+constexpr int kMismatch = -5;
+constexpr int kGapOpenExtend = -6;  // GAP_OPEN + GAP_EXTEND: a 1-base gap
+constexpr int kGapExtend = -1;
+constexpr int kMinScore = 25;       // both scores below: read dropped
+constexpr int kNeg = -6;            // "no gap": any value <= -5 is exact
+constexpr int kStrip = 16;          // read rows held in registers
+constexpr int kThreads = 128;
+
+// Best banded local score of one read (row, lx bytes) against one
+// haplotype (hrow, ly bytes). lo, hi: this problem's bounds of row 0, rows
+// `stride` apart; col: its scratch column, haplotype positions `stride`
+// apart.
+__device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
+                                 const uint8_t* __restrict__ hrow, int ly,
+                                 const int32_t* __restrict__ lo_ptr,
+                                 const int32_t* __restrict__ hi_ptr,
+                                 uint32_t* __restrict__ col, size_t stride) {
+  int best = 0;
+  int pv_lo = 0, pv_hi = 0;  // columns the strip above visited
+  const int n_strips = (lx + kStrip - 1) / kStrip;
+  for (int s = 0; s < n_strips; ++s) {
+    int lo[kStrip], hi[kStrip];
+    int c0 = ly, c1 = 0;
+#pragma unroll
+    for (int r = 0; r < kStrip; ++r) {
+      const int i = s * kStrip + r;
+      lo[r] = 0;
+      hi[r] = 0;
+      if (i < lx) {
+        lo[r] = __ldg(lo_ptr + i * stride);
+        hi[r] = __ldg(hi_ptr + i * stride);
+      }
+      if (lo[r] < hi[r]) {
+        c0 = min(c0, lo[r]);
+        c1 = max(c1, hi[r]);
+      }
+    }
+    c0 = max(c0, 0);
+    c1 = min(c1, ly);
+    if (c0 >= c1) {  // no cell of the strip in the band
+      pv_lo = pv_hi = 0;
+      continue;
+    }
+    int xs[kStrip], hl[kStrip], e[kStrip];
+#pragma unroll
+    for (int r = 0; r < kStrip; ++r) {
+      const int i = s * kStrip + r;
+      xs[r] = i < lx ? __ldg(row + i) : 0;
+      hl[r] = 0;   // H left of the strip's first column
+      e[r] = kNeg;
+    }
+    const bool last = s == n_strips - 1;
+    int h_up_prev = 0;  // H[i0-1][c0-1]
+    if (c0 > 0 && c0 - 1 >= pv_lo && c0 - 1 < pv_hi) {
+      h_up_prev = static_cast<int>(col[(c0 - 1) * stride] & 0xffffu);
+    }
+    for (int j = c0; j < c1; ++j) {
+      const int yj = __ldg(hrow + j);
+      int h = 0, f = kNeg;  // H[i0-1][j], F[i0-1][j]
+      if (j >= pv_lo && j < pv_hi) {
+        const uint32_t w = col[j * stride];
+        h = static_cast<int>(w & 0xffffu);
+        f = static_cast<int>(w >> 16) + kGapOpenExtend;
+      }
+      int diag = h_up_prev;
+      h_up_prev = h;
+#pragma unroll
+      for (int r = 0; r < kStrip; ++r) {
+        const bool in_band = j >= lo[r] && j < hi[r];
+        f = __viaddmax_s32(h, kGapOpenExtend, f + kGapExtend);
+        const int en = __viaddmax_s32(hl[r], kGapOpenExtend, e[r] + kGapExtend);
+        const int sc = xs[r] == yj ? kMatch : kMismatch;
+        h = __vimax3_s32_relu(diag + sc, en, f);
+        h = in_band ? h : 0;
+        f = in_band ? f : kNeg;
+        e[r] = in_band ? en : kNeg;
+        diag = hl[r];
+        hl[r] = h;
+        best = max(best, h);
+      }
+      if (!last) {
+        col[j * stride] = (static_cast<uint32_t>(f - kGapOpenExtend) << 16) |
+                          static_cast<uint32_t>(h);
+      }
+    }
+    pv_lo = c0;
+    pv_hi = c1;
+  }
+  return best;
+}
+
+// Problem p scores read p/2 against idx_ref (p even) or idx_alt (p odd).
+// kCodes: one int8 call code per read, else int32 scores [2][n_reads].
+template <bool kCodes>
+__global__ void __launch_bounds__(kThreads)
+sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
+                 const uint8_t* __restrict__ haps, int ly,
+                 const int32_t* __restrict__ idx_ref,
+                 const int32_t* __restrict__ idx_alt,
+                 const int32_t* __restrict__ jlo,
+                 const int32_t* __restrict__ jhi,
+                 int32_t* __restrict__ scores, int8_t* __restrict__ codes,
+                 uint32_t* __restrict__ scratch) {
+  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool live = p < n_prob;
+  const int read = live ? static_cast<int>(p >> 1) : 0;
+  const int which = static_cast<int>(p & 1);
+  int best = 0;
+  if (live) {
+    const int hidx = __ldg((which ? idx_alt : idx_ref) + read);
+    best = sw_banded_problem(reads + static_cast<size_t>(read) * lx, lx,
+                             haps + static_cast<size_t>(hidx) * ly, ly,
+                             jlo + p, jhi + p, scratch + p, n_prob);
+  }
+  if (kCodes) {
+    // the pair (ref, alt) of one read sits in adjacent lanes of one warp
+    const int other = __shfl_xor_sync(0xffffffffu, best, 1);
+    if (live && which == 0) {
+      const int ref = best, alt = other;
+      int8_t code = ref > alt ? 1 : (alt > ref ? 2 : 3);
+      if (ref < kMinScore && alt < kMinScore) code = 0;
+      codes[read] = code;
+    }
+  } else if (live) {
+    scores[static_cast<size_t>(which) * n_reads + read] = best;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows of the scratch buffer a launch needs per problem (0: none).
+int sw_banded_scratch_rows(int lx, int ly) { return lx > kStrip ? ly : 0; }
+
+// Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
+// reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; jlo, jhi: int32
+// [lx, 2 * n_reads]. Exactly one of scores (int32 [2, n_reads]) and codes
+// (int8 [n_reads]) is non-null. scratch: uint32
+// [sw_banded_scratch_rows(lx, ly), 2 * n_reads].
+int sw_banded_launch(const void* reads, int n_reads, int lx, const void* haps,
+                     int ly, const void* idx_ref, const void* idx_alt,
+                     const void* jlo, const void* jhi, void* scores,
+                     void* codes, void* scratch, void* stream) {
+  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+  if (n_prob == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((n_prob + kThreads - 1) / kThreads);
+  auto* r = static_cast<const uint8_t*>(reads);
+  auto* h = static_cast<const uint8_t*>(haps);
+  auto* ir = static_cast<const int32_t*>(idx_ref);
+  auto* ia = static_cast<const int32_t*>(idx_alt);
+  auto* lo = static_cast<const int32_t*>(jlo);
+  auto* hi = static_cast<const int32_t*>(jhi);
+  auto* sc = static_cast<int32_t*>(scores);
+  auto* cd = static_cast<int8_t*>(codes);
+  auto* scr = static_cast<uint32_t*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (codes) {
+    sw_banded_kernel<true><<<blocks, kThreads, 0, st>>>(
+        r, n_reads, lx, h, ly, ir, ia, lo, hi, sc, cd, scr);
+  } else {
+    sw_banded_kernel<false><<<blocks, kThreads, 0, st>>>(
+        r, n_reads, lx, h, ly, ir, ia, lo, hi, sc, cd, scr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* sw_banded_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

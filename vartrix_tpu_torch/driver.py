@@ -7,9 +7,10 @@ whole BAM into columns, filter and join reads to variants, score every
 the matrices. Callable in-process (`_main(argv)`) for tests.
 
 Scoring runs on --device (default cuda) with --backend cuda (the
-hand-written kernel, default) or torch (the plain PyTorch version). A run
-that asks for a CUDA device where there is none stops; it never continues
-on the CPU unless --device cpu is given.
+hand-written kernel, default) or torch (the plain PyTorch version), in
+--sw-mode full (csrc/sw_pair.cu) or banded (host band bounds,
+csrc/sw_banded.cu). A run that asks for a CUDA device where there is none
+stops; it never continues on the CPU unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -146,7 +147,6 @@ def _not_ported(args) -> List[str]:
         "--fetch regions": args.fetch == "regions",
         "CRAM input": _is_cram(args.bam),
         "BCF input": is_bcf(args.vcf),
-        "--sw-mode banded": args.sw_mode == "banded",
         "--device-agg": args.device_agg,
         "--mesh-devices": args.mesh_devices != 0,
         "--distributed": args.distributed is not None,
@@ -156,9 +156,10 @@ def _not_ported(args) -> List[str]:
     return [k for k, v in asked.items() if v]
 
 
-def select_backend(device: str, backend: str) -> sw_cuda.SwBackend:
-    """The scoring backend for --device/--backend; exits on a combination
-    that cannot run here."""
+def select_backend(device: str, backend: str, sw_mode: str, threads: int):
+    """The scoring backend for --device/--backend/--sw-mode; exits on a
+    combination that cannot run here. Banded mode builds its band bounds
+    on the host with `threads` threads."""
     if device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available. The plain "
                   "version runs on the CPU only when asked: --device cpu "
@@ -168,6 +169,9 @@ def select_backend(device: str, backend: str) -> sw_cuda.SwBackend:
         log.error("--backend cuda is the CUDA kernel and needs --device "
                   "cuda; use --backend torch for --device %s", device)
         sys.exit(1)
+    if sw_mode == "banded":
+        return sw_cuda.BandedSwBackend(device, kernel=backend == "cuda",
+                                       threads=threads)
     return sw_cuda.SwBackend(device, kernel=backend == "cuda")
 
 
@@ -187,7 +191,8 @@ def _main(argv: List[str]) -> None:
     if missing:
         log.error("not yet ported: %s", ", ".join(missing))
         sys.exit(1)
-    backend = select_backend(args.device, args.backend)
+    backend = select_backend(args.device, args.backend, args.sw_mode,
+                             args.threads)
 
     cell_barcodes = load_barcodes(args.cell_barcodes)
     records = read_vcf_records(args.vcf)
@@ -238,10 +243,11 @@ def _main(argv: List[str]) -> None:
     with _phase("collect"):
         read_idx, cells_l, umis_l = collect_reads_fast(
             cbam, works, cell_barcodes, pargs)
-    launches = sw_cuda.LAUNCHES
+    launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES)
     with _phase("score"):
         per_variant_codes = score_all_fast(cbam, works, read_idx, backend)
-    launches = sw_cuda.LAUNCHES - launches
+    launches = {"sw_pair": sw_cuda.LAUNCHES - launches[0],
+                "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1]}
     log.debug("Finished aligning reads for all variants")
 
     metrics = Metrics()
@@ -302,7 +308,7 @@ def _main(argv: List[str]) -> None:
             "metrics": metrics.as_dict(),
             "phase_seconds": {k: round(v, 4) for k, v in _PHASE_TIMES.items()},
             "matrix": {"shape": list(matrix.shape), "nnz": matrix.nnz()},
-            "kernel_launches": {"sw_pair": launches},
+            "kernel_launches": launches,
             "config": {
                 "scoring_method": args.scoring_method, "umi": args.umi,
                 "device": args.device, "backend": args.backend,

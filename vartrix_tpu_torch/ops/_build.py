@@ -1,11 +1,14 @@
 """Builds the port's native libraries from the checkout's sources at first use.
 
-Two shared libraries, both with a plain C interface loaded through ctypes:
+Four shared libraries, each with a plain C interface loaded through ctypes:
 
-  * the Smith-Waterman pair kernel, ``csrc/sw_pair.cu``, compiled by nvcc for
-    Hopper (``sm_90a``);
+  * the Smith-Waterman kernels, ``csrc/sw_pair.cu`` (full) and
+    ``csrc/sw_banded.cu`` (banded), each compiled by nvcc for Hopper
+    (``sm_90a``);
   * the host BAM/matrix library, ``native/genomio.cpp`` at the repository
-    root, compiled by g++ with the flags of ``native/build.sh``.
+    root, compiled by g++ with the flags of ``native/build.sh``;
+  * the host band builder of ``--sw-mode banded``, ``csrc/band_bounds.cpp``,
+    compiled by g++ with the same flags.
 
 Outputs go to ``build/vartrix_tpu_torch/`` in the checkout, named by a hash
 of the source and the flags so a changed source never loads a stale build.
@@ -28,7 +31,9 @@ REPO_ROOT = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "vartrix_tpu_torch")
 
 KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_pair.cu")
+BANDED_KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_banded.cu")
 GENOMIO_SRC = os.path.join(REPO_ROOT, "native", "genomio.cpp")
+BAND_BOUNDS_SRC = os.path.join(PKG_DIR, "csrc", "band_bounds.cpp")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -71,16 +76,31 @@ def _build(src: str, subdir: str, stem: str, flags: List[str],
     return out
 
 
+def _cuda_library(src: str, stem: str) -> str:
+    return _build(src, "", stem, NVCC_FLAGS,
+                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src])
+
+
 def kernel_library() -> str:
     """Path of the compiled CUDA pair kernel (built on first call)."""
-    return _build(KERNEL_SRC, "", "libsw_pair", NVCC_FLAGS,
-                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SRC])
+    return _cuda_library(KERNEL_SRC, "libsw_pair")
+
+
+def banded_kernel_library() -> str:
+    """Path of the compiled CUDA banded kernel (built on first call)."""
+    return _cuda_library(BANDED_KERNEL_SRC, "libsw_banded")
 
 
 def genomio_library() -> str:
     """Path of the compiled host BAM/matrix library (built on first call)."""
     return _build(GENOMIO_SRC, "native", "libgenomio", GXX_FLAGS,
                   lambda tmp: ["g++", *GXX_FLAGS, GENOMIO_SRC, "-o", tmp, "-lz"])
+
+
+def band_bounds_library() -> str:
+    """Path of the compiled host band builder (built on first call)."""
+    return _build(BAND_BOUNDS_SRC, "native", "libband_bounds", GXX_FLAGS,
+                  lambda tmp: ["g++", *GXX_FLAGS, BAND_BOUNDS_SRC, "-o", tmp])
 
 
 def build_log(library: str) -> str:

@@ -1,17 +1,21 @@
-"""Wrapper of the CUDA Smith-Waterman pair kernel (csrc/sw_pair.cu) and the
-scoring backend that core/fast_pipeline.score_all_fast drives.
+"""Wrappers of the CUDA Smith-Waterman kernels (csrc/sw_pair.cu, full;
+csrc/sw_banded.cu, banded) and the scoring backends that
+core/fast_pipeline.score_all_fast drives.
 
-The wrapper functions take tensors. CUDA tensors always go to the kernel;
-CPU tensors go to the plain version (ops/sw_torch.py), the only case in
-which it is taken. The kernel is built with nvcc at first use and bound
-through ctypes; a failed build or launch raises.
+The wrapper functions take tensors. CUDA tensors always go to a kernel;
+CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py),
+the only case in which it is taken. Each kernel is built with nvcc at first
+use and bound through ctypes; a failed build or launch raises.
 
 `SwBackend` is the duck-typed backend contract of the pipeline: calling it
 scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
 `.pair_calls_chained` (the default route) returns one int8 call code per
 read. It chunks each shape bucket into launches of CHUNK_READS reads,
 shipping reads as 2-bit codes while every read of the bucket is A/C/G/T
-and as dense bytes from the first chunk that is not.
+and as dense bytes from the first chunk that is not. `BandedSwBackend`
+(--sw-mode banded) has the default route only: per chunk it builds both
+problems' band bounds on the host (ops/sw_native.py) and ships dense
+reads, bounds and indices.
 """
 
 from __future__ import annotations
@@ -22,17 +26,19 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import sw_torch
-from ._build import kernel_library
+from . import sw_banded_torch, sw_native, sw_torch
+from ._build import banded_kernel_library, kernel_library
 
 # 131,072 (read, haplotype) problems per launch
 CHUNK_READS = 65536
 
-# kernel launches since the last reset; the smoke check zeroes it before
-# driving the main path and reads it after
+# launches of each kernel (sw_pair, sw_banded) since the last reset; the
+# smoke check zeroes them before driving a path and reads them after
 LAUNCHES = 0
+BANDED_LAUNCHES = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_banded_lib: Optional[ctypes.CDLL] = None
 
 
 def _kernel() -> ctypes.CDLL:
@@ -51,6 +57,22 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
+def _banded_kernel() -> ctypes.CDLL:
+    global _banded_lib
+    if _banded_lib is None:
+        lib = ctypes.CDLL(banded_kernel_library())
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.sw_banded_launch.restype = ci
+        lib.sw_banded_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp,
+                                         vp, vp, vp, vp]
+        lib.sw_banded_scratch_rows.restype = ci
+        lib.sw_banded_scratch_rows.argtypes = [ci, ci]
+        lib.sw_banded_error_string.restype = ctypes.c_char_p
+        lib.sw_banded_error_string.argtypes = [ci]
+        _banded_lib = lib
+    return _banded_lib
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.dtype != dtype or t.dim() != ndim:
@@ -60,6 +82,23 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} is on {t.device}, reads are on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_widths(lx: int, ly: int) -> None:
+    if min(lx, ly) >= 1 << 16:
+        raise ValueError(f"read and haplotype widths ({lx}, {ly}) both at or "
+                         "above 65536: scores would overflow the scratch "
+                         "word")
+
+
+def _output(R: int, per_read: int, codes: bool, dev: torch.device):
+    """A launch's output, int8 codes [R] or int32 scores [per_read, R], and
+    its (scores, codes) pointers, one of them None."""
+    if codes:
+        out = torch.empty(R, dtype=torch.int8, device=dev)
+        return out, None, out.data_ptr()
+    out = torch.empty((per_read, R), dtype=torch.int32, device=dev)
+    return out, out.data_ptr(), None
 
 
 def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
@@ -82,17 +121,9 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             raise ValueError("read_lens must have one entry per read")
     if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
         raise ValueError("idx_ref and idx_alt must have one entry per read")
-    if min(lx, ly) >= 1 << 16:
-        raise ValueError(f"read and haplotype widths ({lx}, {ly}) both at or "
-                         "above 65536: scores would overflow the scratch "
-                         "word")
+    _check_widths(lx, ly)
     lib = _kernel()
-    if codes:
-        out = torch.empty(R, dtype=torch.int8, device=dev)
-        scores_ptr, codes_ptr = None, out.data_ptr()
-    else:
-        out = torch.empty((per_read, R), dtype=torch.int32, device=dev)
-        scores_ptr, codes_ptr = out.data_ptr(), None
+    out, scores_ptr, codes_ptr = _output(R, per_read, codes, dev)
     if R == 0:
         return out
     rows = lib.sw_pair_scratch_rows(lx, ly)
@@ -144,6 +175,71 @@ def batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError("x and y must have the same number of rows")
     ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
     return _launch(x, None, y, ident, ident, 1, False)[0]
+
+
+def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
+                   idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                   jlo: torch.Tensor, jhi: torch.Tensor,
+                   codes: bool) -> torch.Tensor:
+    """Validate, allocate and launch the banded kernel on the current
+    stream."""
+    global BANDED_LAUNCHES
+    dev = reads.device
+    _check(reads, "reads", torch.uint8, 2, dev)
+    _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
+    _check(idx_ref, "idx_ref", torch.int32, 1, dev)
+    _check(idx_alt, "idx_alt", torch.int32, 1, dev)
+    _check(jlo, "jlo", torch.int32, 2, dev)
+    _check(jhi, "jhi", torch.int32, 2, dev)
+    R, lx = reads.shape
+    ly = hap_mat.shape[1]
+    if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
+        raise ValueError("idx_ref and idx_alt must have one entry per read")
+    if jlo.shape != (lx, 2 * R) or jhi.shape != jlo.shape:
+        raise ValueError(f"jlo and jhi must be [{lx}, {2 * R}] (one "
+                         "column per problem), got "
+                         f"{list(jlo.shape)} and {list(jhi.shape)}")
+    _check_widths(lx, ly)
+    lib = _banded_kernel()
+    out, scores_ptr, codes_ptr = _output(R, 2, codes, dev)
+    if R == 0:
+        return out
+    rows = lib.sw_banded_scratch_rows(lx, ly)
+    scratch = torch.empty((rows, 2 * R), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.sw_banded_launch(
+        reads.data_ptr(), R, lx, hap_mat.data_ptr(), ly, idx_ref.data_ptr(),
+        idx_alt.data_ptr(), jlo.data_ptr(), jhi.data_ptr(),
+        scores_ptr, codes_ptr, scratch.data_ptr() if rows else None, stream)
+    if err != 0:
+        raise RuntimeError("sw_banded kernel launch failed: "
+                           + lib.sw_banded_error_string(err).decode())
+    BANDED_LAUNCHES += 1
+    return out
+
+
+def banded_pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
+                       idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                       jlo: torch.Tensor, jhi: torch.Tensor) -> torch.Tensor:
+    """int32 [2, R] banded (ref, alt) scores. reads: uint8 [R, lx] (pad 0);
+    hap_mat: uint8 [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of
+    hap_mat; jlo, jhi: int32 [lx, 2R] band bounds of each read row, problem
+    2r the read's ref and 2r + 1 its alt (ops/sw_native.band_bounds)."""
+    if reads.device.type == "cpu":
+        return sw_banded_torch.banded_pair_scores(reads, hap_mat, idx_ref,
+                                                  idx_alt, jlo, jhi)
+    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, False)
+
+
+def banded_pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
+                      idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                      jlo: torch.Tensor, jhi: torch.Tensor) -> torch.Tensor:
+    """int8 [R] call codes of each read's banded (ref, alt) scores.
+    Arguments as banded_pair_scores."""
+    if reads.device.type == "cpu":
+        return sw_banded_torch.banded_pair_calls(reads, hap_mat, idx_ref,
+                                                 idx_alt, jlo, jhi)
+    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, True)
 
 
 def _to(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -239,3 +335,48 @@ class SwBackend:
                 _to(idx_alt[start : start + n], np.int32, dev),
                 None if lens is None else _to(lens, np.int32, dev)))
         return outs
+
+
+class BandedSwBackend:
+    """--sw-mode banded on `device`: the CUDA banded kernel (kernel=True,
+    needs a CUDA device) or its plain PyTorch version (kernel=False). The
+    band bounds are built on the host with `threads` threads, per chunk, so
+    chunk k+1's bounds overlap chunk k's kernel. Empty haplotypes get an
+    empty band and score 0."""
+
+    def __init__(self, device: str = "cuda", kernel: bool = True,
+                 threads: int = 1):
+        self.device = torch.device(device)
+        if kernel and self.device.type != "cuda":
+            raise ValueError("the CUDA kernel needs a CUDA device")
+        self.threads = max(int(threads), 1)
+        self._pair_calls = (banded_pair_calls if kernel
+                            else sw_banded_torch.banded_pair_calls)
+
+    def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
+        """int8 [R] call codes. x is a uint8 [R, lx] array or a provider
+        `x(start, n)` -> uint8 [n, lx] rows with `.shape` == (R, lx); reads
+        ship dense, since the bounds are built from the dense rows on the
+        host. Outputs stay on the device until all chunks are launched."""
+        R, _ = x.shape
+        _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
+        dev = self.device
+        hap_mat = np.ascontiguousarray(hap_mat, np.uint8)
+        hap = _to(hap_mat, np.uint8, dev)
+        outs = []
+        for start in range(0, R, CHUNK_READS):
+            n = min(CHUNK_READS, R - start)
+            xc = np.ascontiguousarray(
+                x(start, n) if callable(x) else x[start : start + n],
+                np.uint8)
+            ir = idx_ref[start : start + n]
+            ia = idx_alt[start : start + n]
+            jlo, jhi = sw_native.band_bounds(xc, hap_mat, ir, ia,
+                                             self.threads)
+            outs.append(self._pair_calls(
+                _to(xc, np.uint8, dev), hap, _to(ir, np.int32, dev),
+                _to(ia, np.int32, dev), _to(jlo, np.int32, dev),
+                _to(jhi, np.int32, dev)))
+        if not outs:
+            return np.zeros(0, np.int8)
+        return torch.cat(outs).cpu().numpy()
