@@ -7,29 +7,37 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card and toolchain: name and power limit (nvidia-smi), torch, CUDA;
-  2. build: the CUDA kernels sw_pair.cu and sw_banded.cu (nvcc), libgenomio
-     and the band builder band_bounds.cpp (g++) from the checkout's
-     sources, all in parallel, with the compiler's register report;
+  2. build: the CUDA kernels sw_pair.cu, sw_banded.cu and band_build.cu
+     (nvcc), libgenomio and the host band reference band_bounds.cpp (g++)
+     from the checkout's sources, and a probe of band_build's candidate
+     scoring (nvcc, SASS only), all in parallel, with the compiler's
+     register report;
   3. each kernel against its plain PyTorch version on the card, exact
-     equality, int32 scores and int8 call codes. sw_pair: dense and 2-bit
-     reads over the shape families of the full path, the interleaved-index
-     and plain-row entries (the TPU kernels K5 and K6), and one read long
-     enough to take the scratch word near its 16-bit limit. sw_banded: the
-     families of the banded path on host-built band bounds (main, bending
-     bands, full bands, empty bands, empty haplotypes, raw bytes, ly=4032,
-     a haplotype wider than 32,767 bases);
+     equality. sw_pair (int32 scores and int8 codes): dense and 2-bit reads
+     over the shape families of the full path, the interleaved-index and
+     plain-row entries (the TPU kernels K5 and K6), and one read long
+     enough to take the scratch word near its 16-bit limit. band_build: its
+     int32 bounds against the plain version and the host reference on the
+     families of the banded path (main, bending bands, full bands, empty
+     bands, empty haplotypes, raw bytes, ly=4032, a haplotype wider than
+     32,767 bases, low-complexity pairs with thousands of matches), and
+     against the host reference on one homopolymer locus at ly=4032 whose
+     matches need several chain-pass ranges. sw_banded: scores and codes
+     on those bounds against its plain version;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
-     CUDA events: each kernel, its plain version, and its bound, the cells
-     the function needs x the recurrence's instructions per cell (sw_pair's
-     hot loop in SASS, cuobjdump) at the card's instruction issue rate; for
-     sw_banded also its own instructions per cell, the host band
-     construction and the cells and lane slots the band's divergence costs;
+     CUDA events: each kernel, its plain version, and its bound at the
+     card's instruction issue rate (the SASS of each hot loop, cuobjdump)
+     against its bytes; for sw_banded the instructions per cell of its
+     core and of its masked zones, the cells it visits and the lane slots
+     its divergence leaves idle; for band_build the host reference's time
+     per pair (the route it replaced);
   5. end to end: a seeded 500,000-read dataset through the driver in
      --sw-mode full and banded, each with --backend cuda in the three
      scoring modes, each repeated with --backend torch; matrices must agree,
-     each mode's kernel must have launched on its cuda runs and never on the
-     torch runs, and the other mode's kernel never. The CLI entry
-     (python -m vartrix_tpu_torch) runs on a small dataset in both modes.
+     each mode's kernels must have launched on its cuda runs and never on
+     the torch runs, the other mode's never, and the host band reference
+     never. The CLI entry (python -m vartrix_tpu_torch) runs on a small
+     dataset in both modes.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -57,9 +65,49 @@ ISSUE_PER_SM_CLK = 4 * 32
 # codes; banded, int8 call codes
 MAIN_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1E"
 BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1EE"
+CHAIN_KERNEL_SYMBOL = "chain_kernel"
 # the SASS instruction that marks one DP cell in each kernel's hot loop:
-# the three-way H maximum with zero
+# the three-way H maximum with zero; and one chain DP step (64 candidate
+# predecessors) in band_build's: the warp-wide maximum
 CELL_OPCODE = "VIMNMX3.RELU"
+CHAIN_OPCODE = "REDUX"
+STRIP = 8  # read rows per strip of sw_banded.cu (kStrip)
+# band_build's bound charges each chain candidate the instructions of its
+# scoring alone (band_build.cu `candidate`) and one max: the SASS of a loop
+# that does that per candidate less that of the same loop without it (its
+# LOP3s, which only consume the loads, not counted), both loading the
+# candidate's slot. A key lookup is charged a source count:
+# the key's rolling update (shift, or, mask) and one probe of a hashed
+# index of the haplotype's keys (hash, load, compare, branch).
+PROBE_SRC = r'''
+#include "band_build.cu"
+
+// slots: int32 [n, 4], one (i, j, sc, b) per candidate
+__global__ void candidate_probe(const int* __restrict__ slots, int n, int a,
+                                int i, int j, int* __restrict__ out) {
+  int best = 0;
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    const int* q = slots + 4 * k;
+    const Slot v{q[0], q[1], q[2], q[3]};
+    best = max(best, candidate(v, a, i, j));
+  }
+  out[threadIdx.x] = best;
+}
+
+// the same loop and loads, consumed by XORs (LOP3) only
+__global__ void load_probe(const int* __restrict__ slots, int n, int a,
+                           int i, int j, int* __restrict__ out) {
+  int acc = a + i + j;
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    const int* q = slots + 4 * k;
+    acc ^= q[0] ^ q[1] ^ q[2] ^ q[3];
+  }
+  out[threadIdx.x] = acc;
+}
+'''
+KEY_LOOKUP_INSTR = 7
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
@@ -247,21 +295,110 @@ def wide_family(rng):
     return x, np.stack([hap, alt]), idx, idx + 1
 
 
-def strip_columns(jlo, jhi, strip=16):
-    """int64 [strips, P] columns the banded kernel visits per 16-row strip
-    of each problem: [min jlo, max jhi) over the strip's in-band rows."""
+def repetitive_family(rng, n_reads=256, lx=64, ly=128):
+    """Low-complexity reads and haplotypes (short tandem repeats of one to
+    three bases, the alt with a few substitutions): thousands of 6-mer
+    matches per problem, up to (len_x - 5)(len_y - 5)."""
+    import numpy as np
+
+    units = [b"A", b"AC", b"ACG", b"AAC", b"CA", b"TTG"]
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    x = np.zeros((n_reads, lx), np.uint8)
+    haps = np.ones((2 * n_reads, ly), np.uint8)
+    for r in range(n_reads):
+        unit = np.frombuffer(units[r % len(units)], np.uint8)
+        n = int(rng.integers(lx // 2, lx + 1))
+        x[r, :n] = np.resize(unit, n)
+        for h in (2 * r, 2 * r + 1):
+            m = int(rng.integers(ly // 2, ly + 1))
+            haps[h, :m] = np.resize(unit, m)
+            if h % 2:
+                haps[h, rng.integers(0, m, 3)] = rng.choice(bases, 3)
+    idx = np.arange(n_reads, dtype=np.int32)
+    return x, haps, 2 * idx, 2 * idx + 1
+
+
+def strip_stats(x, jlo, jhi, ly):
+    """What sw_banded.cu does with its strips of STRIP rows on these
+    bounds (its zone rule, in numpy): (visited cells, core cells, share of lane
+    slots its warps leave idle). A strip visits [c0, c1), the union of its
+    in-band rows; its core is [max jlo, min jhi) over its rows below the
+    read's true length, clipped to [c0, c1); a warp runs each of a strip's
+    three zones (entry, core, exit) as long as its widest lane."""
     import numpy as np
 
     lx, P = jlo.shape
+    strip = STRIP
     n = -(-lx // strip) * strip
-    lo = np.full((n, P), np.iinfo(np.int64).max)
+    nz = x != 0
+    len_x = np.where(nz.any(1), lx - np.argmax(nz[:, ::-1], axis=1), 0)
+    len_x = np.repeat(len_x, 2)
+    lo = np.zeros((n, P), np.int64)
     hi = np.zeros((n, P), np.int64)
-    band = jlo < jhi
-    lo[:lx] = np.where(band, jlo, lo[:lx])
-    hi[:lx] = np.where(band, jhi, 0)
-    lo = lo.reshape(-1, strip, P).min(axis=1)
-    hi = hi.reshape(-1, strip, P).max(axis=1)
-    return np.maximum(hi - lo, 0)
+    lo[:lx], hi[:lx] = jlo, jhi
+    band = lo < hi
+    under = np.arange(n)[:, None] < len_x[None, :]
+    big = np.iinfo(np.int64).max
+
+    def per_strip(a, reduce):
+        return reduce(a.reshape(-1, strip, P), axis=1)
+
+    c0 = np.maximum(per_strip(np.where(band, lo, big), np.min), 0)
+    c1 = np.minimum(per_strip(np.where(band, hi, 0), np.max), ly)
+    cols = np.maximum(c1 - c0, 0)
+    core_lo = per_strip(np.where(under, lo, 0), np.max)
+    core_hi = per_strip(np.where(under, hi, ly), np.min)
+    a = np.maximum(c0, np.minimum(core_lo, c1))
+    b = np.maximum(a, np.minimum(core_hi, c1))
+    live = cols > 0
+    core = np.where(live, b - a, 0)
+    warp_cols = sum(
+        np.where(live, z, 0).reshape(cols.shape[0], -1, 32).max(axis=2).sum()
+        for z in (a - c0, b - a, c1 - b))
+    return (strip * int(cols.sum()), strip * int(core.sum()),
+            1 - cols.sum() / (32 * warp_cols))
+
+
+def homopolymer_locus(rng, n_reads=128, lx=160, ly=4032):
+    """Reads of one homopolymer locus (a 4,000-base run of A, the alt
+    with a few substitutions), 140-150 bases each, some with an error:
+    about (len_x - 5)(len_y - 5) = 600,000 matches per problem, more than
+    one chain-pass range of the band builder's scratch budget holds."""
+    import numpy as np
+
+    haps = np.ones((2, ly), np.uint8)
+    haps[:, :4000] = ord("A")
+    haps[1, rng.integers(0, 4000, 4)] = ord("C")
+    x = np.zeros((n_reads, lx), np.uint8)
+    lens = rng.integers(140, 151, n_reads)
+    for r in range(n_reads):
+        x[r, : lens[r]] = ord("A")
+        if r % 3 == 0:
+            x[r, rng.integers(0, lens[r])] = ord("G")
+    idx = np.zeros(n_reads, np.int32)
+    return x, haps, idx, idx + 1
+
+
+def match_counts(xt, ht, irt, iat):
+    """int64 [2R] 6-mer matches of each problem (read r against idx_ref[r]
+    and idx_alt[r]), counted on the card with the plain builder's keys."""
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch
+
+    len_x = band_torch.true_lengths(xt, 0)
+    len_y = band_torch.true_lengths(ht, 1)
+    kx = band_torch.kmer_keys(xt, len_x, -1)
+    ky = band_torch.kmer_keys(ht, len_y, -2)
+    idx = torch.stack([irt, iat], 1).reshape(-1).long()
+    P = idx.shape[0]
+    out = torch.empty(P, dtype=torch.int64, device=xt.device)
+    g = max(1, (1 << 28) // max(kx.shape[1] * ky.shape[1], 1))
+    for s in range(0, P, g):
+        p = torch.arange(s, min(P, s + g), device=xt.device)
+        out[p] = (kx[p // 2][:, :, None] == ky[idx[p]][:, None, :]).sum(
+            (1, 2))
+    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -285,33 +422,54 @@ def phase_card():
     return card, clock_mhz * 1e6
 
 
+def build_probe():
+    """PROBE_SRC compiled for sm_90a into a cubin (SASS only) in
+    build/chip_smoke_probe/; returns its path."""
+    from vartrix_tpu_torch.ops import _build
+
+    out_dir = os.path.join(HERE, "build", "chip_smoke_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "candidate_probe.cu")
+    with open(src, "w") as f:
+        f.write(PROBE_SRC)
+    out = os.path.join(out_dir, "candidate_probe.cubin")
+    subprocess.run([_build._nvcc(), "-cubin", "-gencode",
+                    "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-I", os.path.dirname(_build.BAND_BUILD_SRC), "-o", out,
+                    src], check=True, capture_output=True, text=True)
+    return out
+
+
 def phase_build():
-    """Builds every library at once; returns the two kernels' paths."""
+    """Builds every library at once; returns the three kernels' paths and
+    the probe's."""
     from vartrix_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     builders = (_build.kernel_library, _build.banded_kernel_library,
-                _build.genomio_library, _build.band_bounds_library)
+                _build.band_build_library, _build.genomio_library,
+                _build.band_bounds_library, build_probe)
     with ThreadPoolExecutor(max_workers=len(builders)) as ex:
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
-    log(f"build: sw_pair.cu + sw_banded.cu + genomio.cpp + band_bounds.cpp "
-        f"in {time.perf_counter() - t0:.2f}s")
+    log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
+        f"band_bounds.cpp + the candidate probe in "
+        f"{time.perf_counter() - t0:.2f}s")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"  nvcc: {nvcc[-1]}")
-    for path in paths[:2]:
+    for path in paths[:3]:
         for line in _build.build_log(path).splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  ptxas {os.path.basename(path)}: {line.strip()}")
-    return paths[0], paths[1]
+    return paths[:3] + paths[5:]
 
 
-def phase_sass(kern_path, symbol):
-    """Instructions the compiled kernel issues per DP cell, read from the
-    SASS of one instantiation's hot loop: the loop holding the most
-    CELL_OPCODE instructions, one per cell."""
+def sass_loops(kern_path, symbol, opcode):
+    """The innermost loops of one kernel function's SASS that hold
+    `opcode`: a list of (instructions, count of opcode, opcode histogram).
+    A loop is a backward branch; innermost, it holds no other."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = (shutil.which("cuobjdump")
             or os.path.join(cuda_home, "bin", "cuobjdump"))
@@ -320,26 +478,72 @@ def phase_sass(kern_path, symbol):
     funcs = re.split(r"\n\s*Function : ", sass)
     body = [f for f in funcs if f.startswith("_Z") and symbol in f]
     if len(body) != 1:
-        fail(f"cuobjdump shows no single {symbol} function")
+        fail(f"cuobjdump shows no single {symbol} function among "
+             + ", ".join(f.split(None, 1)[0] for f in funcs[1:]))
     instrs = [(int(a, 16), op.strip()) for a, op in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[0])]
-    loops = []
+    spans = []
     for addr, op in instrs:
         m = re.search(r"\bBRA 0x([0-9a-f]+)", op)
         if m and int(m.group(1), 16) < addr:
-            loop = [o for a, o in instrs if int(m.group(1), 16) <= a <= addr]
-            cells = sum(CELL_OPCODE in o for o in loop)
-            loops.append((-cells, len(loop), loop))
-    if not loops or min(loops)[0] == 0:
-        fail("no DP loop found in the kernel's SASS")
-    neg_cells, n_instr, loop = min(loops)
-    cells = -neg_cells
-    opcodes = collections.Counter(
-        re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in loop)
-    log(f"sass: {symbol} hot loop: {n_instr} instructions for "
-        f"{cells} cells = {n_instr / cells:.4f} per cell; opcodes "
-        + ", ".join(f"{k} {v}" for k, v in opcodes.most_common()))
-    return n_instr / cells
+            spans.append((int(m.group(1), 16), addr))
+    out = []
+    for t, a in spans:
+        if any(o != (t, a) and t <= o[0] and o[1] <= a for o in spans):
+            continue
+        loop = [o for ad, o in instrs if t <= ad <= a]
+        n = sum(opcode in o for o in loop)
+        if n:
+            out.append((len(loop), n, collections.Counter(
+                re.sub(r"^@!?U?P\w+\s+", "", o).split()[0] for o in loop)))
+    if not out:
+        fail(f"no loop holding {opcode} in {symbol}'s SASS")
+    return out
+
+
+def _describe(n_instr, n, hist):
+    return (f"{n_instr} instructions for {n} = {n_instr / n:.4f} each; "
+            "opcodes " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
+
+
+def phase_sass(paths):
+    """Instructions per DP cell of sw_pair's hot loop and of sw_banded's
+    core and masked loops; per chain candidate, the function's own
+    (candidate scoring and one max, from the probe) and band_build's DP
+    step (one warp step scores 64 candidates, so its warp instructions x
+    32 lanes / 64, for information)."""
+    kern, banded, band, probe = paths
+    n_instr, n, hist = max(sass_loops(kern, MAIN_KERNEL_SYMBOL, CELL_OPCODE),
+                           key=lambda t: t[1])
+    log(f"sass: {MAIN_KERNEL_SYMBOL} hot loop, per cell: "
+        + _describe(n_instr, n, hist))
+    pair = n_instr / n
+    loops = sorted(sass_loops(banded, BANDED_KERNEL_SYMBOL, CELL_OPCODE),
+                   key=lambda t: t[0] / t[1])
+    for name, loop in (("core", loops[0]), ("masked", loops[-1])):
+        log(f"sass: {BANDED_KERNEL_SYMBOL} {name} loop, per cell: "
+            + _describe(*loop))
+    zones = (loops[0][0] / loops[0][1], loops[-1][0] / loops[-1][1])
+    probe_loops = {}
+    for sym in ("_Z15candidate_probe", "_Z10load_probe"):
+        loop = min(sass_loops(probe, sym, "LDG"), key=lambda t: t[0])
+        lop3 = loop[2]["LOP3.LUT"] if sym == "_Z10load_probe" else 0
+        probe_loops[sym] = loop[0] - lop3
+        log(f"sass: {sym} loop, per iteration: " + _describe(loop[0], 1,
+                                                             loop[2])
+            + (f"; {lop3} LOP3 not counted" if lop3 else ""))
+    per_candidate = (probe_loops["_Z15candidate_probe"]
+                     - probe_loops["_Z10load_probe"])
+    if per_candidate <= 0:
+        fail("the candidate probe's loop is no longer than the load probe's")
+    n_instr, n, hist = min(sass_loops(band, CHAIN_KERNEL_SYMBOL,
+                                      CHAIN_OPCODE), key=lambda t: t[0])
+    log(f"sass: {CHAIN_KERNEL_SYMBOL} DP step, per {CHAIN_OPCODE}: "
+        + _describe(n_instr, n, hist))
+    log(f"sass: a chain candidate's own work {per_candidate} instructions "
+        f"(scoring and one max); band_build's DP step issues "
+        f"{n_instr / n * 32 / 64:.4f} per candidate (64 per warp step)")
+    return pair, zones, per_candidate
 
 
 def phase_equality(rng):
@@ -416,13 +620,14 @@ def phase_equality(rng):
 
 
 def phase_banded_equality(rng, threads):
-    """Banded kernel against its plain version on every family, on bounds
-    built by the host band builder; returns max |err|."""
+    """band_build against its plain version and the host reference, and
+    sw_banded against its plain version on the kernel's bounds, on every
+    family; returns the max |err| of band_build
+    (its bounds against both) and of sw_banded."""
     import numpy as np
     import torch
 
-    from vartrix_tpu_torch.ops import (sw_banded_torch, sw_cuda, sw_native,
-                                       sw_torch)
+    from vartrix_tpu_torch.ops import band_torch, sw_cuda, sw_native
 
     families = {
         "main": make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
@@ -440,36 +645,93 @@ def phase_banded_equality(rng, threads):
         "ly_4032": make_family(rng, 4096, 160, 4032, read_len=(140, 150),
                                hap_len=(3800, 4032)),
         "wide_40000": wide_family(rng),
+        "repetitive": repetitive_family(rng),
     }
-    worst = 0
+    worst = band_worst = 0
     for name, (x, haps, ir, ia) in families.items():
-        jlo, jhi = sw_native.band_bounds(x, haps, ir, ia, threads)
-        args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda") + tuple(
-            torch.from_numpy(b).cuda() for b in (jlo, jhi))
-        plain = sw_banded_torch.banded_pair_scores(*args)
-        plain_codes = sw_torch.calls_from_scores(plain)
-        got = sw_cuda.banded_pair_scores(*args)
-        codes = sw_cuda.banded_pair_calls(*args)
+        host = sw_native.band_bounds(x, haps, ir, ia, threads)
+        xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+        got = sw_cuda.band_bounds(xt, ht, irt, iat)
+        plain = band_torch.band_bounds(xt, ht, irt, iat)
         torch.cuda.synchronize()
-        err = int((got - plain).abs().max().item())
-        bad = int((codes != plain_codes).sum().item())
-        worst = max(worst, err)
+        bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
+                  for g, h, q in zip(got, host, plain))
+        band_worst = max(band_worst, *(
+            int(np.abs(g.cpu().numpy().astype(np.int64) - h).max(initial=0))
+            for g, h in zip(got, host)))
+        matches = match_counts(xt, ht, irt, iat)
+        jlo, jhi = host
         width = jhi.astype(np.int64) - jlo
         empty = int((width.sum(axis=0) == 0).sum())
-        log(f"sw_banded {name:11s} R={len(x)} lx={x.shape[1]} "
-            f"ly={haps.shape[1]}: max|err|={err} code mismatches={bad}; "
-            f"in-band cells {int(width.sum())}, max jhi {int(jhi.max())}, "
-            f"problems with an empty band {empty}/{width.shape[1]}, "
-            f"max score {int(plain.max().item())}")
-        if err or bad:
-            fail(f"sw_banded disagrees with the plain version on {name}")
-        if name == "unseeded" and (empty != width.shape[1]
-                                   or plain.any().item()):
+        log(f"band_build {name:11s} R={len(x)} lx={x.shape[1]} "
+            f"ly={haps.shape[1]}: bound mismatches vs host and plain {bad}; "
+            f"matches per problem max {int(matches.max())}, total "
+            f"{int(matches.sum())}; in-band cells {int(width.sum())}, max "
+            f"jhi {int(jhi.max())}, problems with an empty band "
+            f"{empty}/{width.shape[1]}")
+        if bad:
+            fail(f"band_build disagrees with the host reference or the "
+                 f"plain version on {name}")
+        args = (xt, ht, irt, iat) + tuple(got)
+        err, ref = check_banded(name, args)
+        worst = max(worst, err)
+        if name == "unseeded" and (empty != width.shape[1] or ref.any().item()):
             fail("unseeded pairs have a band or a score")
         if name == "wide_40000" and (jhi.max() <= 32767
-                                     or plain.min().item() < 100):
+                                     or ref.min().item() < 100):
             fail("the wide family's band or score is not the expected one")
-    return worst
+        if name == "repetitive" and int(matches.max()) < 1000:
+            fail("the repetitive family has fewer matches than intended")
+    # one homopolymer locus: its chain pass runs over several ranges of the
+    # scratch budget. The plain builder's loop over match ranks would take
+    # minutes here, so the bounds are held against the host reference
+    # only; sw_banded against its plain version as above.
+    x, haps, ir, ia = homopolymer_locus(rng)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    matches = match_counts(xt, ht, irt, iat)
+    ranges = sw_cuda.band_ranges(torch.cumsum(matches, 0).cpu().numpy(),
+                                 x.shape[1], sw_cuda.BAND_SCRATCH_BYTES)
+    t0 = time.perf_counter()
+    got = sw_cuda.band_bounds(xt, ht, irt, iat)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    host = sw_native.band_bounds(x, haps, ir, ia, threads)
+    bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
+    log(f"band_build homopolymer R={len(x)} lx={x.shape[1]} "
+        f"ly={haps.shape[1]}: bound mismatches vs host {bad}; matches "
+        f"{int(matches.sum())} ({int(matches.max())} per problem at most, "
+        f"{12 * int(matches.sum()) / 2**30:.2f} GiB of match scratch), "
+        f"{len(ranges)} chain-pass ranges of at most "
+        f"{sw_cuda.BAND_SCRATCH_BYTES / 2**30:.2f} GiB; {dt:.3f} s")
+    if bad:
+        fail("band_build disagrees with the host reference on the "
+             "homopolymer locus")
+    if len(ranges) < 2:
+        fail("the homopolymer locus fits one chain-pass range")
+    err, _ = check_banded("homopolymer", (xt, ht, irt, iat) + tuple(got))
+    worst = max(worst, err)
+    return band_worst, worst
+
+
+def check_banded(name, args):
+    """sw_banded's scores and codes on `args` (reads, haplotypes, indices,
+    bounds on the card) against its plain version; (max |err|, the plain
+    scores)."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_banded_torch, sw_cuda, sw_torch
+
+    ref = sw_banded_torch.banded_pair_scores(*args)
+    sc = sw_cuda.banded_pair_scores(*args)
+    codes = sw_cuda.banded_pair_calls(*args)
+    torch.cuda.synchronize()
+    err = int((sc - ref).abs().max().item())
+    bad = int((codes != sw_torch.calls_from_scores(ref)).sum().item())
+    log(f"sw_banded {name:11s}: max|err|={err} code mismatches={bad}; max "
+        f"score {int(ref.max().item())}")
+    if err or bad:
+        fail(f"sw_banded disagrees with the plain version on {name}")
+    return err, ref
 
 
 def time_cuda(fn, warmup, reps):
@@ -534,82 +796,108 @@ def phase_timing(rng, instr_per_cell, clock_hz):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def phase_banded_timing(rng, instr_per_cell, banded_instr_per_cell,
-                        clock_hz, threads):
-    """Banded kernel and plain times at the main bucket shape, the host
-    band construction, and the bound: the in-band cells x the recurrence's
-    own instructions per cell (sw_pair's hot loop, `instr_per_cell`; a scan
-    that starts and stops each row at its band edges needs no per-cell band
-    test), over the card's instruction issue rate, against the bytes
-    (reads, haplotypes, indices, bounds in, codes out) over HBM bandwidth.
-    Also the banded kernel's own instructions per cell, the cells it visits
-    (whole strip column ranges) and the share of lane slots its warps leave
-    idle."""
+def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
+                        threads):
+    """band_build and sw_banded at the main bucket shape: kernel and plain
+    times, bounds, and what the zones cost.
+
+    band_build's bound: its bytes (reads, haplotypes and indices read
+    once, bounds written once) against its operations, len_x - 5 key
+    lookups per problem at KEY_LOOKUP_INSTR each plus min(64, rank) chain
+    candidates per match of these inputs at the instructions of scoring
+    one (the probe's SASS), at the issue rate.
+    sw_banded's bound: the in-band cells x the recurrence's own
+    instructions per cell (sw_pair's hot loop; a scan that starts and
+    stops each row at its band edges tests nothing per cell), against its
+    bytes (reads, haplotypes, indices, bounds in, codes out). Also the host
+    reference's time per pair, the route band_build replaced."""
     import numpy as np
     import torch
 
-    from vartrix_tpu_torch.ops import sw_banded_torch, sw_cuda, sw_native
+    from vartrix_tpu_torch.ops import (band_torch, sw_banded_torch, sw_cuda,
+                                       sw_native)
 
     x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
                                   read_len=(140, 150), hap_len=(180, 224))
+    pairs = 2 * MAIN_READS
     sw_native.band_bounds(x[:64], haps, ir[:64], ia[:64], threads)  # load
     n1 = 4096
     t0 = time.perf_counter()
     sw_native.band_bounds(x[:n1], haps, ir[:n1], ia[:n1], 1)
     one_us = (time.perf_counter() - t0) / (2 * n1) * 1e6
     t0 = time.perf_counter()
-    jlo, jhi = sw_native.band_bounds(x, haps, ir, ia, threads)
-    host_s = time.perf_counter() - t0
-    pairs = 2 * MAIN_READS
-    args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda") + tuple(
-        torch.from_numpy(b).cuda() for b in (jlo, jhi))
-    ms = time_cuda(lambda: sw_cuda.banded_pair_calls(*args), 3, 15)
-    plain_ms = time_cuda(lambda: sw_banded_torch.banded_pair_calls(*args),
-                         1, 3)
-    in_band = int((jhi.astype(np.int64) - jlo).sum())
-    cols = strip_columns(jlo, jhi)
-    visited = 16 * int(cols.sum())
-    warp_cols = int(cols.reshape(cols.shape[0], -1, 32).max(axis=2).sum())
-    idle = 1 - cols.sum() / (32 * warp_cols)
-    full = true_cells(x, haps, ir, ia)
+    sw_native.band_bounds(x, haps, ir, ia, threads)
+    host_us = (time.perf_counter() - t0) / pairs * 1e6
+    args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    band_ms = time_cuda(lambda: sw_cuda.band_bounds(*args), 3, 15)
+    band_plain_ms = time_cuda(lambda: band_torch.band_bounds(*args), 1, 2)
+    jlo_t, jhi_t = sw_cuda.band_bounds(*args)
+    jlo, jhi = jlo_t.cpu().numpy(), jhi_t.cpu().numpy()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_per_s = sms * ISSUE_PER_SM_CLK * clock_hz
-    ops_ms = in_band * instr_per_cell / issue_per_s * 1e3
+    counts = match_counts(*args).cpu().numpy()
+    cand = int(np.where(counts <= 65, counts * (counts - 1) // 2,
+                        2080 + 64 * (counts - 65)).sum())
+    len_x = np.repeat((x != 0).sum(1), 2)
+    lookups = int(np.maximum(len_x - 5, 0).sum())
+    b_ops = lookups * KEY_LOOKUP_INSTR + cand * per_candidate
+    b_ops_ms = b_ops / issue_per_s * 1e3
+    b_bytes = (x.nbytes + haps.nbytes + ir.nbytes + ia.nbytes + jlo.nbytes
+               + jhi.nbytes)
+    b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
+    b_bound = max(b_ops_ms, b_bytes_ms)
+    log(f"timing band_build at lx={MAIN_LX} ly={MAIN_LY}, {pairs} pairs: "
+        f"{band_ms:.4f} ms ({band_ms / pairs * 1e6:.4f} ns per pair; count, "
+        f"device sum, one read of the sums, chain); plain {band_plain_ms:.3f}"
+        f" ms; host reference (the route it replaced) {host_us:.3f} us per "
+        f"pair on {threads} threads, {one_us:.3f} us on one")
+    log(f"timing band_build bound: ({lookups} key lookups x "
+        f"{KEY_LOOKUP_INSTR} instructions (source count) + {cand} chain "
+        f"candidates ({int(counts.sum())} matches, {counts.mean():.1f} per "
+        f"problem) x {per_candidate} instructions (the probe's SASS)) / "
+        f"{issue_per_s:.6g} instructions/s = {b_ops_ms:.4f} ms; {b_bytes} "
+        f"bytes / {HBM_BYTES_PER_S:.3g} B/s = {b_bytes_ms:.4f} ms; bound "
+        f"{b_bound:.4f} ms, {100 * b_bound / band_ms:.1f} % of the kernel's "
+        "time; library_ms null: no PyTorch call builds a chained band")
+    band = dict(ms=band_ms, plain_ms=band_plain_ms, bound_ms=b_bound,
+                bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes")
+    # sw_banded on the kernel's bounds
+    dp_args = args + (jlo_t, jhi_t)
+    ms = time_cuda(lambda: sw_cuda.banded_pair_calls(*dp_args), 3, 15)
+    plain_ms = time_cuda(lambda: sw_banded_torch.banded_pair_calls(
+        *dp_args), 1, 3)
+    in_band = int((jhi.astype(np.int64) - jlo).sum())
+    full = true_cells(x, haps, ir, ia)
+    ops_ms = in_band * pair_instr / issue_per_s * 1e3
     nbytes = (x.nbytes + haps.nbytes + ir.nbytes + ia.nbytes + jlo.nbytes
               + jhi.nbytes + MAIN_READS)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    # what the kernel issues: every visited cell at its own loop's count
-    issued_ms = visited * banded_instr_per_cell / issue_per_s * 1e3
-    log(f"timing sw_banded at lx={MAIN_LX} ly={MAIN_LY}, {pairs} pairs "
-        f"(dense reads, int8 codes): {ms:.4f} ms ({in_band / ms / 1e6:.1f} "
-        f"G in-band cells/s); plain {plain_ms:.3f} ms")
-    log(f"timing sw_banded cells: {in_band} in band "
-        f"({in_band / pairs:.1f} per pair; full SW needs {full}, "
-        f"{100 * in_band / full:.1f} %); the kernel visits {visited} "
-        f"({100 * visited / in_band:.1f} % of in band) in whole strip "
-        f"column ranges; its warps leave {100 * idle:.1f} % of lane slots "
-        f"idle (each strip runs as long as its widest lane)")
+    log(f"timing sw_banded cells: {in_band} in band ({in_band / pairs:.1f} "
+        f"per pair; full SW needs {full}, {100 * in_band / full:.1f} %)")
     log(f"timing sw_banded bound: {in_band} in-band cells x "
-        f"{instr_per_cell:.4f} instructions per cell (the recurrence, "
-        f"sw_pair's SASS) / {issue_per_s:.6g} instructions/s = "
-        f"{ops_ms:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = "
-        f"{bytes_ms:.4f} ms; bound {bound_ms:.4f} ms, "
-        f"{100 * bound_ms / ms:.1f} % of the kernel's time; library_ms null: "
-        f"no PyTorch call computes Smith-Waterman")
-    log(f"timing sw_banded issue (informative): its hot loop issues "
-        f"{banded_instr_per_cell:.4f} instructions per cell (SASS; the "
-        f"per-cell band test and selects add "
-        f"{banded_instr_per_cell - instr_per_cell:.4f}); {visited} visited "
-        f"cells x {banded_instr_per_cell:.4f} / {issue_per_s:.6g} = "
-        f"{issued_ms:.4f} ms at full issue, {100 * issued_ms / ms:.1f} % of "
-        f"the kernel's time")
-    log(f"timing band construction on the host: {host_s * 1e3:.1f} ms for "
-        f"{pairs} pairs on {threads} threads = {host_s / pairs * 1e6:.3f} us "
-        f"per pair; one thread {one_us:.3f} us per pair; bounds "
-        f"{jlo.nbytes + jhi.nbytes} bytes per launch to the card")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        f"{pair_instr:.4f} instructions per cell (the recurrence, sw_pair's "
+        f"SASS) / {issue_per_s:.6g} instructions/s = {ops_ms:.4f} ms; "
+        f"{nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms; library_ms null: no PyTorch call "
+        "computes Smith-Waterman")
+    visited, core, idle = strip_stats(x, jlo, jhi, MAIN_LY)
+    core_i, masked_i = zones
+    issued = core * core_i + (visited - core) * masked_i
+    issued_ms = issued / issue_per_s * 1e3
+    log(f"timing sw_banded: {ms:.4f} ms ({in_band / ms / 1e6:.1f} G in-band "
+        f"cells/s), bound {100 * bound_ms / ms:.1f} % of it; plain "
+        f"{plain_ms:.3f} ms; visits {visited} cells "
+        f"({100 * visited / in_band:.1f} % of in band), {core} in the core "
+        f"({100 * core / visited:.1f} % of "
+        f"visited) at {core_i:.4f} instructions per cell and {visited - core}"
+        f" masked at {masked_i:.4f}; {issued / in_band:.4f} issued per "
+        f"in-band cell, {issued_ms:.4f} ms at full issue "
+        f"({100 * issued_ms / ms:.1f} % of its time); its warps leave "
+        f"{100 * idle:.1f} % of lane slots idle")
+    banded = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                  bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    return band, banded
 
 
 def read_mtx(path):
@@ -646,24 +934,20 @@ def phase_e2e(work):
     """Both paths, full then banded, each in the three modes with --backend
     cuda and then torch. Every kernel's count is zeroed just before each
     (path, backend) group and read just after; returns the launches of the
-    full path's cuda runs (sw_pair) and the banded path's (sw_banded)."""
+    full path's cuda runs (sw_pair) and the banded path's (sw_banded,
+    band_build). The host band reference must never be called."""
     from vartrix_tpu_torch import driver
     from vartrix_tpu_torch.ops import sw_cuda, sw_native
     from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
-    # host band construction inside `score`: the backend calls
-    # sw_native.band_bounds once per chunk; time those calls
-    band = {"s": 0.0, "pairs": 0}
+    host_calls = [0]
     band_bounds = sw_native.band_bounds
 
-    def timed_band_bounds(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = band_bounds(*args, **kwargs)
-        band["s"] += time.perf_counter() - t0
-        band["pairs"] += out[0].shape[1]
-        return out
+    def counted_band_bounds(*args, **kwargs):
+        host_calls[0] += 1
+        return band_bounds(*args, **kwargs)
 
-    sw_native.band_bounds = timed_band_bounds
+    sw_native.band_bounds = counted_band_bounds
     t0 = time.perf_counter()
     data = generate_dataset(os.path.join(work, "e2e"), SynthConfig(**E2E_CFG))
     n_reads = data["n_reads"]
@@ -673,12 +957,13 @@ def phase_e2e(work):
              "alt_frac": ["-s", "alt_frac"]}
     backends = {"cuda": ["--backend", "cuda"],
                 "torch": ["--backend", "torch", "--device", "cuda"]}
-    own = {"full": "sw_pair", "banded": "sw_banded"}
+    own = {"full": {"sw_pair"}, "banded": {"sw_banded", "band_build"}}
     outs = {}
     launches = {}
     for sw_mode in own:
         for be, be_args in backends.items():
             sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
+            sw_cuda.BAND_LAUNCHES = 0
             for mode, mode_args in modes.items():
                 tag = f"{sw_mode}_{mode}_{be}"
                 out = os.path.join(work, f"{tag}.mtx")
@@ -689,7 +974,6 @@ def phase_e2e(work):
                         "--ref-matrix", ref, "--sw-mode", sw_mode,
                         "--threads", str(os.cpu_count() or 1),
                         "--metrics-json", mj] + mode_args + be_args
-                band["s"], band["pairs"] = 0.0, 0
                 t0 = time.perf_counter()
                 driver._main(argv)
                 dt = time.perf_counter() - t0
@@ -698,24 +982,20 @@ def phase_e2e(work):
                 shape = payload["matrix"]["shape"]
                 if shape != [E2E_CFG["n_variants"], E2E_CFG["n_cells"]]:
                     fail(f"{tag}: matrix shape {shape}")
-                score_s = payload["phase_seconds"]["score"]
                 log(f"e2e {tag}: {dt:.3f}s, {n_reads / dt:.0f} reads/s, nnz "
                     f"{payload['matrix']['nnz']}, launches "
                     f"{payload['kernel_launches']}, phases "
-                    f"{payload['phase_seconds']}"
-                    + (f"; band construction {band['s']:.3f}s for "
-                       f"{band['pairs']} pairs, "
-                       f"{100 * band['s'] / score_s:.1f} % of score"
-                       if sw_mode == "banded" else ""))
+                    f"{payload['phase_seconds']}")
                 outs[sw_mode, mode, be] = (out, ref)
             launches[sw_mode, be] = {"sw_pair": sw_cuda.LAUNCHES,
-                                     "sw_banded": sw_cuda.BANDED_LAUNCHES}
+                                     "sw_banded": sw_cuda.BANDED_LAUNCHES,
+                                     "band_build": sw_cuda.BAND_LAUNCHES}
             log(f"e2e {sw_mode} {be}: launches over the three runs "
                 f"{launches[sw_mode, be]}")
-    for sw_mode, kernel in own.items():
+    for sw_mode, kernels in own.items():
         for be in backends:
             for name, n in launches[sw_mode, be].items():
-                if (n > 0) != (be == "cuda" and name == kernel):
+                if (n > 0) != (be == "cuda" and name in kernels):
                     fail(f"--sw-mode {sw_mode} --backend {be}: {name} "
                          f"launched {n} times")
         for mode in modes:
@@ -728,14 +1008,18 @@ def phase_e2e(work):
                 fail(f"{sw_mode} {mode}: the kernel's matrices differ from "
                      "the plain version's")
     sw_native.band_bounds = band_bounds
+    log(f"e2e: host band reference calls over every run: {host_calls[0]}")
+    if host_calls[0]:
+        fail("a run built band bounds on the host")
     for mode in modes:
         a, b = outs["banded", mode, "cuda"], outs["full", mode, "cuda"]
         log(f"e2e {mode}: banded vs full, entries differing: matrix "
             f"{entries_differing(a[0], b[0])}"
             + (f", ref matrix {entries_differing(a[1], b[1])}"
                if mode == "coverage_umi" else ""))
-    return (launches["full", "cuda"]["sw_pair"],
-            launches["banded", "cuda"]["sw_banded"])
+    return {"sw_pair": launches["full", "cuda"]["sw_pair"],
+            "sw_banded": launches["banded", "cuda"]["sw_banded"],
+            "band_build": launches["banded", "cuda"]["band_build"]}
 
 
 def phase_cli(work):
@@ -782,36 +1066,40 @@ def main():
     sys.path.insert(0, HERE)
     t_start = time.perf_counter()
     card, clock_hz = phase_card()
-    kern_path, banded_path = phase_build()
-    instr_per_cell = phase_sass(kern_path, MAIN_KERNEL_SYMBOL)
-    banded_instr_per_cell = phase_sass(banded_path, BANDED_KERNEL_SYMBOL)
+    paths = phase_build()
+    pair_instr, zones, per_candidate = phase_sass(paths)
     threads = os.cpu_count() or 1
     rng = np.random.default_rng(2024)
     worst = phase_equality(rng)
-    banded_worst = phase_banded_equality(rng, threads)
-    timing = phase_timing(rng, instr_per_cell, clock_hz)
-    banded_timing = phase_banded_timing(rng, instr_per_cell,
-                                        banded_instr_per_cell, clock_hz,
-                                        threads)
+    band_worst, banded_worst = phase_banded_equality(rng, threads)
+    timing = phase_timing(rng, pair_instr, clock_hz)
+    band_timing, banded_timing = phase_banded_timing(
+        rng, pair_instr, zones, per_candidate, clock_hz, threads)
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        launches, banded_launches = phase_e2e(work)
+        launches = phase_e2e(work)
         phase_cli(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    sw_note = "no PyTorch call computes Smith-Waterman"
     kernels = [
         ("sw_pair", "vartrix_tpu_torch/csrc/sw_pair.cu",
          "vartrix_tpu/ops/sw_pallas_v2.py:55 (K1), :795 (K2), :1325 (K3), "
          ":1645 (K5); vartrix_tpu/ops/sw_pallas.py:52 (K6)",
-         launches, worst, timing),
+         worst, timing, sw_note),
         ("sw_banded", "vartrix_tpu_torch/csrc/sw_banded.cu",
          "vartrix_tpu/ops/sw_pallas_v2.py:1836 (K4)",
-         banded_launches, banded_worst, banded_timing),
+         banded_worst, banded_timing, sw_note),
+        ("band_build", "vartrix_tpu_torch/csrc/band_build.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:1945 (no TPU kernel: the host band "
+         "construction of make_banded_tpu_scorer)",
+         band_worst, band_timing, "no PyTorch call builds a chained band"),
     ]
     record = {"kernels": []}
-    for name, source, replaces, n, err, t in kernels:
+    for name, source, replaces, err, t, note in kernels:
+        n = launches[name]
         log(f"{name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library_ms null, "
             f"{n} launches on its path")
@@ -821,7 +1109,7 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-            "library_note": "no PyTorch call computes Smith-Waterman",
+            "library_note": note,
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))

@@ -172,7 +172,7 @@ def test_backend_pair_route_matches_jax_scores(monkeypatch):
 
     provider.shape = x.shape
     monkeypatch.setattr(sw_cuda, "CHUNK_READS", 256)  # three chunks
-    be = sw_cuda.BandedSwBackend("cpu", kernel=False, threads=2)
+    be = sw_cuda.BandedSwBackend("cpu", kernel=False)
     np.testing.assert_array_equal(
         be.pair_calls_chained(provider, hap_mat, idx_ref, idx_alt),
         codes_from_scores(exp))
@@ -268,7 +268,8 @@ def test_banded_run_byte_equal_to_jax(tmp_path, data, mode):
         assert _read(ref) == _read(exp_ref)
     payload = json.loads(mj.read_text())
     assert payload["config"]["sw_mode"] == "banded"
-    assert payload["kernel_launches"] == {"sw_pair": 0, "sw_banded": 0}
+    assert payload["kernel_launches"] == {"sw_pair": 0, "sw_banded": 0,
+                                          "band_build": 0}
 
 
 def test_banded_run_byte_equal_to_jax_k4(tmp_path, data):

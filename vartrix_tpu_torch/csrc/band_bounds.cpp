@@ -1,4 +1,8 @@
-// Per-row band bounds of --sw-mode banded, built on the host.
+// Per-row band bounds of --sw-mode banded, built on the host: the port's
+// exact host reference of the band, on no path of the program. Banded runs
+// build the same bounds on the device (csrc/band_build.cu, plain version
+// ops/band_torch.py); the tests and chip_smoke.py hold both against this
+// file.
 //
 // The port's own copy of the chained-band construction of the JAX package's
 // native aligner (native/swlib.cpp build_chained_band, the rust-bio style

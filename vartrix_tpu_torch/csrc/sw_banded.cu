@@ -5,8 +5,8 @@
 // Replaces the TPU kernel of that path, vartrix_tpu/ops/sw_pallas_v2.py:1836
 // `_sw_kernel_v4_banded` (entry `_sw_banded_pairs`, l.1907): the full
 // anti-diagonal DP with every cell masked by its read row's band. Each read
-// row i carries one column interval [jlo[i], jhi[i]) built on the host
-// (csrc/band_bounds.cpp, the reference tool's chained k-mer band). Cells in
+// row i carries one column interval [jlo[i], jhi[i]) built on the card by
+// csrc/band_build.cu (the reference tool's chained k-mer band). Cells in
 // the band follow the recurrence of csrc/sw_pair.cu:
 //   E[i][j] = max(H[i][j-1] - 6, E[i][j-1] - 1)
 //   F[i][j] = max(H[i-1][j] - 6, F[i-1][j] - 1)
@@ -19,36 +19,52 @@
 // reduce to one int8 call code (0/1/2/3, MIN_SCORE 25) as in sw_pair.cu.
 //
 // Layout, carried from sw_pair.cu. A thread sweeps the haplotype once per
-// strip of S = 16 read rows, holding the strip's read bases, per-row H and
-// E, and the rows' bounds in registers; the bottom row's (H, F + 6) of each
-// column goes to the next strip through global scratch [column][problem],
-// one 32-bit word (0 <= H, F + 6 < 65536 while min(lx, ly) < 65536; the
-// wrapper refuses more). The K4 layout (128 lanes per diagonal, the
-// reversed y buffer) hid the TPU's wavefront ramp and is not carried over.
+// strip of kStrip = 8 read rows (16-row strips visit more out-of-band
+// cells and measured slower at the main shape), holding the strip's read
+// bases, per-row H and E, and the rows' bounds in registers; the bottom
+// row's (H, F + 6) of each column goes to the next strip through global
+// scratch, one 32-bit word (0 <= H, F + 6 < 65536 while min(lx, ly) <
+// 65536; the wrapper refuses more). The
+// K4 layout (128 lanes per diagonal, the reversed y buffer) hid the TPU's
+// wavefront ramp and is not carried over.
 //
-// What the band buys. A strip visits only the columns [min jlo, max jhi)
-// of its rows, and masks each cell by its own row's interval; strips with
-// no in-band row are skipped. A strip may reach columns the strip above
-// never visited: the previous strip's visited range stays in two registers,
-// and outside it the strip reads (H, F) = (0, NEG) instead of scratch, so
-// scratch is never cleared. The row scan starts at the strip's first
-// column with H = 0 and E = NEG on its left, exact because that column is
-// left of every row's band. Bounds load per strip from a [row][problem]
-// layout, so a warp's 32 loads of one row coalesce.
+// Scratch is indexed by the column's offset from the strip's first
+// column, [j - c0][problem], not by the column itself: the lanes of a warp
+// hold problems whose bands start at different columns, and at the same
+// step they then touch neighbouring words instead of 32 rows of the
+// buffer. Two buffers alternate by strip, since a strip reads its
+// predecessor's words at offsets from that strip's first column.
+//
+// What the band buys. A strip visits the columns [c0, c1) of its rows'
+// union (strips with no in-band row are skipped), in three zones:
+//   * the core [max jlo, min jhi) over the strip's rows below the read's
+//     true length, where every row is in band: sw_pair.cu's hot loop, with
+//     no band test and no select;
+//   * the entry zone [c0, core) and the exit zone [core, c1) on either
+//     side, where each cell is masked by its own row's interval.
+// Rows at or past the read's true length (read byte 0, which matches no
+// haplotype byte) are computed freely in the core: their H never exceeds
+// the best H of the rows above, and no live row lies below them. A strip
+// may reach columns the strip above never visited: the previous strip's
+// visited range stays in two registers and outside it the strip reads
+// the word 0, (H, F) = (0, NEG), so scratch is never cleared. The row scan
+// starts at c0 with H = 0 and E = NEG on its left, exact because that
+// column is left of every row's band. Bounds load per strip from a
+// [row][problem] layout, so a warp's 32 loads of one row coalesce.
 //
 // Bound. Like sw_pair.cu the work is integer instructions, bounded by
-// instruction issue (4 warp instructions per SM and clock). The function
-// needs the in-band cells at the recurrence's own cost per cell, that of
-// sw_pair.cu's hot loop: a scan that starts and stops each row at its band
-// edges tests nothing per cell. This design's per-cell band test (two
-// compares) and three selects are overhead on top of that bound;
-// chip_smoke.py reads both kernels' instructions per cell from
-// cuobjdump -sass. Lanes of a warp hold problems with different column
-// ranges, so a warp runs as long as its widest lane in each strip; the
-// simple design accepts that divergence (chip_smoke.py reports the share
-// of lane slots it leaves idle).
+// instruction issue (4 warp instructions per SM and clock): the in-band
+// cells at the recurrence's own cost per cell, that of sw_pair.cu's hot
+// loop. The entry and exit zones (a diagonal band of width ~41 seen
+// through an 8-row strip has ~7 masked columns on each side) and the
+// out-of-band cells inside the strips' rectangles are the overhead;
+// chip_smoke.py reads both loops' instructions per cell from cuobjdump
+// -sass, and reports the visited and core cells. Lanes of a warp hold
+// problems with different column ranges, so a warp runs as long as its
+// widest lane in each strip (chip_smoke.py reports the idle lane slots).
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -59,24 +75,72 @@ constexpr int kGapOpenExtend = -6;  // GAP_OPEN + GAP_EXTEND: a 1-base gap
 constexpr int kGapExtend = -1;
 constexpr int kMinScore = 25;       // both scores below: read dropped
 constexpr int kNeg = -6;            // "no gap": any value <= -5 is exact
-constexpr int kStrip = 16;          // read rows held in registers
 constexpr int kThreads = 128;
+constexpr int kStrip = 8;           // read rows per strip
+
+// Columns [j0, j1) of one strip. kMasked: each cell is tested against its
+// row's band and set to (H, F) = (0, NEG) outside it; else every cell is
+// computed as in sw_pair.cu. E needs no select: left of a row's band every
+// H of the row is 0, so E stays at NEG (-6) there; right of it E is wrong
+// but feeds only the row's cells further right, all out of band.
+template <bool kMasked>
+__device__ __forceinline__ void sweep(
+    int j0, int j1, const int (&lo)[kStrip], const int (&hi)[kStrip],
+    const int (&xs)[kStrip], int (&hl)[kStrip], int (&e)[kStrip],
+    int& h_up_prev,
+    int& best, const uint8_t* __restrict__ hrow,
+    const uint32_t* __restrict__ col_in, uint32_t* __restrict__ col_out,
+    size_t stride, int pv_lo, int pv_hi, int c0, bool last) {
+  // running offsets of column j in the two buffers (one add per column)
+  const ptrdiff_t step = static_cast<ptrdiff_t>(stride);
+  ptrdiff_t in = (j0 - pv_lo) * step, out = (j0 - c0) * step;
+  for (int j = j0; j < j1; ++j, in += step, out += step) {
+    const int yj = __ldg(hrow + j);
+    const uint32_t w = j >= pv_lo && j < pv_hi ? col_in[in] : 0u;
+    int h = static_cast<int>(w & 0xffffu);           // H[i0-1][j]
+    int f = static_cast<int>(w >> 16) + kGapOpenExtend;  // F[i0-1][j]
+    int diag = h_up_prev;
+    h_up_prev = h;
+#pragma unroll
+    for (int r = 0; r < kStrip; ++r) {
+      f = __viaddmax_s32(h, kGapOpenExtend, f + kGapExtend);
+      const int en = __viaddmax_s32(hl[r], kGapOpenExtend, e[r] + kGapExtend);
+      const int sc = xs[r] == yj ? kMatch : kMismatch;
+      h = __vimax3_s32_relu(diag + sc, en, f);
+      if (kMasked) {
+        const bool in_band = j >= lo[r] && j < hi[r];
+        h = in_band ? h : 0;
+        f = in_band ? f : kNeg;
+      }
+      e[r] = en;
+      diag = hl[r];
+      hl[r] = h;
+      best = max(best, h);
+    }
+    if (!last) {
+      col_out[out] = (static_cast<uint32_t>(f - kGapOpenExtend) << 16) |
+                     static_cast<uint32_t>(h);
+    }
+  }
+}
 
 // Best banded local score of one read (row, lx bytes) against one
 // haplotype (hrow, ly bytes). lo, hi: this problem's bounds of row 0, rows
-// `stride` apart; col: its scratch column, haplotype positions `stride`
-// apart.
+// `stride` apart; col: its scratch column, offsets `stride` apart, two
+// buffers of ly offsets each.
 __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
                                  const uint8_t* __restrict__ hrow, int ly,
                                  const int32_t* __restrict__ lo_ptr,
                                  const int32_t* __restrict__ hi_ptr,
                                  uint32_t* __restrict__ col, size_t stride) {
+  int len_x = lx;
+  while (len_x > 0 && __ldg(row + len_x - 1) == 0) --len_x;
   int best = 0;
   int pv_lo = 0, pv_hi = 0;  // columns the strip above visited
   const int n_strips = (lx + kStrip - 1) / kStrip;
   for (int s = 0; s < n_strips; ++s) {
     int lo[kStrip], hi[kStrip];
-    int c0 = ly, c1 = 0;
+    int c0 = ly, c1 = 0, core_lo = 0, core_hi = ly;
 #pragma unroll
     for (int r = 0; r < kStrip; ++r) {
       const int i = s * kStrip + r;
@@ -90,6 +154,10 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
         c0 = min(c0, lo[r]);
         c1 = max(c1, hi[r]);
       }
+      if (i < len_x) {
+        core_lo = max(core_lo, lo[r]);
+        core_hi = min(core_hi, hi[r]);
+      }
     }
     c0 = max(c0, 0);
     c1 = min(c1, ly);
@@ -97,6 +165,8 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
       pv_lo = pv_hi = 0;
       continue;
     }
+    const int a = max(c0, min(core_lo, c1));  // [a, b): the core
+    const int b = max(a, min(core_hi, c1));
     int xs[kStrip], hl[kStrip], e[kStrip];
 #pragma unroll
     for (int r = 0; r < kStrip; ++r) {
@@ -106,39 +176,19 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
       e[r] = kNeg;
     }
     const bool last = s == n_strips - 1;
+    const uint32_t* col_in = col + ((s + 1) & 1) * ly * stride;
+    uint32_t* col_out = col + (s & 1) * ly * stride;
     int h_up_prev = 0;  // H[i0-1][c0-1]
     if (c0 > 0 && c0 - 1 >= pv_lo && c0 - 1 < pv_hi) {
-      h_up_prev = static_cast<int>(col[(c0 - 1) * stride] & 0xffffu);
+      h_up_prev = static_cast<int>(col_in[(c0 - 1 - pv_lo) * stride] &
+                                   0xffffu);
     }
-    for (int j = c0; j < c1; ++j) {
-      const int yj = __ldg(hrow + j);
-      int h = 0, f = kNeg;  // H[i0-1][j], F[i0-1][j]
-      if (j >= pv_lo && j < pv_hi) {
-        const uint32_t w = col[j * stride];
-        h = static_cast<int>(w & 0xffffu);
-        f = static_cast<int>(w >> 16) + kGapOpenExtend;
-      }
-      int diag = h_up_prev;
-      h_up_prev = h;
-#pragma unroll
-      for (int r = 0; r < kStrip; ++r) {
-        const bool in_band = j >= lo[r] && j < hi[r];
-        f = __viaddmax_s32(h, kGapOpenExtend, f + kGapExtend);
-        const int en = __viaddmax_s32(hl[r], kGapOpenExtend, e[r] + kGapExtend);
-        const int sc = xs[r] == yj ? kMatch : kMismatch;
-        h = __vimax3_s32_relu(diag + sc, en, f);
-        h = in_band ? h : 0;
-        f = in_band ? f : kNeg;
-        e[r] = in_band ? en : kNeg;
-        diag = hl[r];
-        hl[r] = h;
-        best = max(best, h);
-      }
-      if (!last) {
-        col[j * stride] = (static_cast<uint32_t>(f - kGapOpenExtend) << 16) |
-                          static_cast<uint32_t>(h);
-      }
-    }
+    sweep<true>(c0, a, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
+                col_out, stride, pv_lo, pv_hi, c0, last);
+    sweep<false>(a, b, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
+                 col_out, stride, pv_lo, pv_hi, c0, last);
+    sweep<true>(b, c1, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
+                col_out, stride, pv_lo, pv_hi, c0, last);
     pv_lo = c0;
     pv_hi = c1;
   }
@@ -188,7 +238,9 @@ sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
 extern "C" {
 
 // Rows of the scratch buffer a launch needs per problem (0: none).
-int sw_banded_scratch_rows(int lx, int ly) { return lx > kStrip ? ly : 0; }
+int sw_banded_scratch_rows(int lx, int ly) {
+  return lx > kStrip ? 2 * ly : 0;
+}
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; jlo, jhi: int32
@@ -213,7 +265,7 @@ int sw_banded_launch(const void* reads, int n_reads, int lx, const void* haps,
   auto* cd = static_cast<int8_t*>(codes);
   auto* scr = static_cast<uint32_t*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
-  if (codes) {
+  if (cd) {
     sw_banded_kernel<true><<<blocks, kThreads, 0, st>>>(
         r, n_reads, lx, h, ly, ir, ia, lo, hi, sc, cd, scr);
   } else {

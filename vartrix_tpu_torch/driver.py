@@ -8,8 +8,8 @@ the matrices. Callable in-process (`_main(argv)`) for tests.
 
 Scoring runs on --device (default cuda) with --backend cuda (the
 hand-written kernel, default) or torch (the plain PyTorch version), in
---sw-mode full (csrc/sw_pair.cu) or banded (host band bounds,
-csrc/sw_banded.cu). A run that asks for a CUDA device where there is none
+--sw-mode full (csrc/sw_pair.cu) or banded (band bounds built on the
+device by csrc/band_build.cu, then csrc/sw_banded.cu). A run that asks for a CUDA device where there is none
 stops; it never continues on the CPU unless --device cpu is given.
 """
 
@@ -156,10 +156,10 @@ def _not_ported(args) -> List[str]:
     return [k for k, v in asked.items() if v]
 
 
-def select_backend(device: str, backend: str, sw_mode: str, threads: int):
+def select_backend(device: str, backend: str, sw_mode: str):
     """The scoring backend for --device/--backend/--sw-mode; exits on a
-    combination that cannot run here. Banded mode builds its band bounds
-    on the host with `threads` threads."""
+    combination that cannot run here. Neither mode scores on host threads:
+    --threads serves the decode only."""
     if device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available. The plain "
                   "version runs on the CPU only when asked: --device cpu "
@@ -170,8 +170,7 @@ def select_backend(device: str, backend: str, sw_mode: str, threads: int):
                   "cuda; use --backend torch for --device %s", device)
         sys.exit(1)
     if sw_mode == "banded":
-        return sw_cuda.BandedSwBackend(device, kernel=backend == "cuda",
-                                       threads=threads)
+        return sw_cuda.BandedSwBackend(device, kernel=backend == "cuda")
     return sw_cuda.SwBackend(device, kernel=backend == "cuda")
 
 
@@ -191,8 +190,7 @@ def _main(argv: List[str]) -> None:
     if missing:
         log.error("not yet ported: %s", ", ".join(missing))
         sys.exit(1)
-    backend = select_backend(args.device, args.backend, args.sw_mode,
-                             args.threads)
+    backend = select_backend(args.device, args.backend, args.sw_mode)
 
     cell_barcodes = load_barcodes(args.cell_barcodes)
     records = read_vcf_records(args.vcf)
@@ -243,11 +241,13 @@ def _main(argv: List[str]) -> None:
     with _phase("collect"):
         read_idx, cells_l, umis_l = collect_reads_fast(
             cbam, works, cell_barcodes, pargs)
-    launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES)
+    launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
+                sw_cuda.BAND_LAUNCHES)
     with _phase("score"):
         per_variant_codes = score_all_fast(cbam, works, read_idx, backend)
     launches = {"sw_pair": sw_cuda.LAUNCHES - launches[0],
-                "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1]}
+                "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1],
+                "band_build": sw_cuda.BAND_LAUNCHES - launches[2]}
     log.debug("Finished aligning reads for all variants")
 
     metrics = Metrics()

@@ -1,14 +1,15 @@
 """Builds the port's native libraries from the checkout's sources at first use.
 
-Four shared libraries, each with a plain C interface loaded through ctypes:
+Five shared libraries, each with a plain C interface loaded through ctypes:
 
-  * the Smith-Waterman kernels, ``csrc/sw_pair.cu`` (full) and
-    ``csrc/sw_banded.cu`` (banded), each compiled by nvcc for Hopper
-    (``sm_90a``);
+  * the CUDA kernels, ``csrc/sw_pair.cu`` (full Smith-Waterman),
+    ``csrc/sw_banded.cu`` (banded Smith-Waterman) and ``csrc/band_build.cu``
+    (the band bounds of ``--sw-mode banded``), each compiled by nvcc for
+    Hopper (``sm_90a``);
   * the host BAM/matrix library, ``native/genomio.cpp`` at the repository
     root, compiled by g++ with the flags of ``native/build.sh``;
-  * the host band builder of ``--sw-mode banded``, ``csrc/band_bounds.cpp``,
-    compiled by g++ with the same flags.
+  * the host reference of the band bounds, ``csrc/band_bounds.cpp``,
+    compiled by g++ with the same flags (tests and chip_smoke.py only).
 
 Outputs go to ``build/vartrix_tpu_torch/`` in the checkout, named by a hash
 of the source and the flags so a changed source never loads a stale build.
@@ -32,6 +33,7 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "vartrix_tpu_torch")
 
 KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_pair.cu")
 BANDED_KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_banded.cu")
+BAND_BUILD_SRC = os.path.join(PKG_DIR, "csrc", "band_build.cu")
 GENOMIO_SRC = os.path.join(REPO_ROOT, "native", "genomio.cpp")
 BAND_BOUNDS_SRC = os.path.join(PKG_DIR, "csrc", "band_bounds.cpp")
 
@@ -91,6 +93,11 @@ def banded_kernel_library() -> str:
     return _cuda_library(BANDED_KERNEL_SRC, "libsw_banded")
 
 
+def band_build_library() -> str:
+    """Path of the compiled CUDA band builder (built on first call)."""
+    return _cuda_library(BAND_BUILD_SRC, "libband_build")
+
+
 def genomio_library() -> str:
     """Path of the compiled host BAM/matrix library (built on first call)."""
     return _build(GENOMIO_SRC, "native", "libgenomio", GXX_FLAGS,
@@ -98,7 +105,7 @@ def genomio_library() -> str:
 
 
 def band_bounds_library() -> str:
-    """Path of the compiled host band builder (built on first call)."""
+    """Path of the compiled host band reference (built on first call)."""
     return _build(BAND_BOUNDS_SRC, "native", "libband_bounds", GXX_FLAGS,
                   lambda tmp: ["g++", *GXX_FLAGS, BAND_BOUNDS_SRC, "-o", tmp])
 

@@ -1,11 +1,13 @@
-"""Wrappers of the CUDA Smith-Waterman kernels (csrc/sw_pair.cu, full;
-csrc/sw_banded.cu, banded) and the scoring backends that
+"""Wrappers of the CUDA kernels (csrc/sw_pair.cu, full Smith-Waterman;
+csrc/sw_banded.cu, banded Smith-Waterman; csrc/band_build.cu, the band
+bounds of banded mode) and the scoring backends that
 core/fast_pipeline.score_all_fast drives.
 
 The wrapper functions take tensors. CUDA tensors always go to a kernel;
-CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py),
-the only case in which it is taken. Each kernel is built with nvcc at first
-use and bound through ctypes; a failed build or launch raises.
+CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py,
+ops/band_torch.py), the only case in which it is taken. Each kernel is
+built with nvcc at first use and bound through ctypes; a failed build or
+launch raises.
 
 `SwBackend` is the duck-typed backend contract of the pipeline: calling it
 scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
@@ -13,32 +15,40 @@ scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
 read. It chunks each shape bucket into launches of CHUNK_READS reads,
 shipping reads as 2-bit codes while every read of the bucket is A/C/G/T
 and as dense bytes from the first chunk that is not. `BandedSwBackend`
-(--sw-mode banded) has the default route only: per chunk it builds both
-problems' band bounds on the host (ops/sw_native.py) and ships dense
-reads, bounds and indices.
+(--sw-mode banded) has the default route only: per chunk it ships dense
+reads and indices, builds both problems' band bounds on the device
+(band_bounds) and scores them there; no band stage runs on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import sw_banded_torch, sw_native, sw_torch
-from ._build import banded_kernel_library, kernel_library
+from . import band_torch, sw_banded_torch, sw_torch
+from ._build import band_build_library, banded_kernel_library, kernel_library
 
 # 131,072 (read, haplotype) problems per launch
 CHUNK_READS = 65536
 
-# launches of each kernel (sw_pair, sw_banded) since the last reset; the
-# smoke check zeroes them before driving a path and reads them after
+# device bytes the band builder's chain pass may take for its match
+# scratch (12 bytes per match) and work rows (8 bytes per read row) per
+# launch; a chunk that needs more runs the pass over ranges of problems
+BAND_SCRATCH_BYTES = 1 << 30
+
+# launches of each kernel (sw_pair, sw_banded, band_build) since the last
+# reset; the smoke check zeroes them before driving a path and reads them
+# after
 LAUNCHES = 0
 BANDED_LAUNCHES = 0
+BAND_LAUNCHES = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _banded_lib: Optional[ctypes.CDLL] = None
+_band_lib: Optional[ctypes.CDLL] = None
 
 
 def _kernel() -> ctypes.CDLL:
@@ -71,6 +81,24 @@ def _banded_kernel() -> ctypes.CDLL:
         lib.sw_banded_error_string.argtypes = [ci]
         _banded_lib = lib
     return _banded_lib
+
+
+def _band_kernel() -> ctypes.CDLL:
+    global _band_lib
+    if _band_lib is None:
+        lib = ctypes.CDLL(band_build_library())
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.band_build_count.restype = ci
+        lib.band_build_count.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp,
+                                         vp, vp, vp]
+        lib.band_build_chain.restype = ci
+        lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp,
+                                         cl, cl, vp, vp, vp, vp, vp, vp, vp,
+                                         vp]
+        lib.band_build_error_string.restype = ctypes.c_char_p
+        lib.band_build_error_string.argtypes = [ci]
+        _band_lib = lib
+    return _band_lib
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -224,7 +252,7 @@ def banded_pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
     """int32 [2, R] banded (ref, alt) scores. reads: uint8 [R, lx] (pad 0);
     hap_mat: uint8 [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of
     hap_mat; jlo, jhi: int32 [lx, 2R] band bounds of each read row, problem
-    2r the read's ref and 2r + 1 its alt (ops/sw_native.band_bounds)."""
+    2r the read's ref and 2r + 1 its alt (band_bounds)."""
     if reads.device.type == "cpu":
         return sw_banded_torch.banded_pair_scores(reads, hap_mat, idx_ref,
                                                   idx_alt, jlo, jhi)
@@ -240,6 +268,104 @@ def banded_pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
         return sw_banded_torch.banded_pair_calls(reads, hap_mat, idx_ref,
                                                  idx_alt, jlo, jhi)
     return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, True)
+
+
+def band_ranges(ends: np.ndarray, lx: int,
+                budget: int) -> List[Tuple[int, int]]:
+    """Problem ranges [p0, p1) of the band builder's chain pass, in order
+    and covering every problem, each taking at most `budget` bytes of
+    scratch (12 per match, 8 per read row of a problem) unless one problem
+    alone takes more. ends: int64 [P], the running sum of the problems'
+    match counts."""
+    need = 12 * np.asarray(ends, np.int64) + 8 * lx * np.arange(
+        1, len(ends) + 1, dtype=np.int64)
+    out, p0 = [], 0
+    while p0 < len(need):
+        base = need[p0 - 1] if p0 else 0
+        p1 = max(p0 + 1, int(np.searchsorted(need, base + budget, "right")))
+        out.append((p0, p1))
+        p0 = p1
+    return out
+
+
+def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
+                 idx_ref: torch.Tensor, idx_alt: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validate, allocate and launch the band builder on the current
+    stream. Its match scratch is sized exactly: the count kernel's counts
+    are summed on the device and the total is read (the host waits for the
+    count pass there). A chunk within BAND_SCRATCH_BYTES runs one chain
+    pass; a larger one reads every problem's sum and runs the pass over
+    the problem ranges of band_ranges, each in scratch of its own size."""
+    global BAND_LAUNCHES
+    dev = reads.device
+    _check(reads, "reads", torch.uint8, 2, dev)
+    _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
+    _check(idx_ref, "idx_ref", torch.int32, 1, dev)
+    _check(idx_alt, "idx_alt", torch.int32, 1, dev)
+    R, lx = reads.shape
+    H, ly = hap_mat.shape
+    if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
+        raise ValueError("idx_ref and idx_alt must have one entry per read")
+    if lx >= 1 << 23 or lx * ly >= 1 << 31:
+        raise ValueError(f"read and haplotype widths ({lx}, {ly}): the band "
+                         "builder keeps chain scores below 2^25 and match "
+                         "indices in int32")
+    P = 2 * R
+    jlo = torch.empty((lx, P), dtype=torch.int32, device=dev)
+    jhi = torch.empty((lx, P), dtype=torch.int32, device=dev)
+    if P == 0 or lx == 0:
+        return jlo, jhi
+    lib = _band_kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keys = torch.empty((H, ly), dtype=torch.int64, device=dev)
+    hap_len = torch.empty(H, dtype=torch.int32, device=dev)
+    counts = torch.empty(P, dtype=torch.int64, device=dev)
+    err = lib.band_build_count(
+        reads.data_ptr(), R, lx, hap_mat.data_ptr(), H, ly,
+        idx_ref.data_ptr(), idx_alt.data_ptr(), keys.data_ptr(),
+        hap_len.data_ptr(), counts.data_ptr(), stream)
+    if err == 0:
+        ends = torch.cumsum(counts, 0)
+        total = int(ends[-1])
+        ranges = [(0, P, total)]
+        if 12 * total + 8 * lx * P > BAND_SCRATCH_BYTES:
+            e = ends.cpu().numpy()  # every problem's sum, only when needed
+            ranges = [(p0, p1, int(e[p1 - 1] - (e[p0 - 1] if p0 else 0)))
+                      for p0, p1 in band_ranges(e, lx, BAND_SCRATCH_BYTES)]
+        for p0, p1, n in ranges:
+            matches = torch.empty((3, max(n, 1)), dtype=torch.int32,
+                                  device=dev)
+            work = torch.empty((2, p1 - p0, lx), dtype=torch.int32,
+                               device=dev)
+            err = lib.band_build_chain(
+                reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
+                idx_alt.data_ptr(), keys.data_ptr(), hap_len.data_ptr(),
+                ends.data_ptr(), p0, p1, matches[0].data_ptr(),
+                matches[1].data_ptr(), matches[2].data_ptr(),
+                work[0].data_ptr(), work[1].data_ptr(), jlo.data_ptr(),
+                jhi.data_ptr(), stream)
+            if err != 0:
+                break
+    if err != 0:
+        raise RuntimeError("band_build kernel launch failed: "
+                           + lib.band_build_error_string(err).decode())
+    BAND_LAUNCHES += 1
+    return jlo, jhi
+
+
+def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
+                idx_ref: torch.Tensor, idx_alt: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chained-band bounds (k = 6, w = 20) of each read against its ref and
+    alt haplotype rows: (jlo, jhi) int32 [lx, 2R], problem 2r the read's
+    ref and 2r + 1 its alt; the same values as the host reference
+    ops/sw_native.band_bounds. reads: uint8 [R, lx] (pad 0); hap_mat: uint8
+    [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat (the
+    caller checks the range)."""
+    if reads.device.type == "cpu":
+        return band_torch.band_bounds(reads, hap_mat, idx_ref, idx_alt)
+    return _launch_band(reads, hap_mat, idx_ref, idx_alt)
 
 
 def _to(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -338,45 +464,41 @@ class SwBackend:
 
 
 class BandedSwBackend:
-    """--sw-mode banded on `device`: the CUDA banded kernel (kernel=True,
-    needs a CUDA device) or its plain PyTorch version (kernel=False). The
-    band bounds are built on the host with `threads` threads, per chunk, so
-    chunk k+1's bounds overlap chunk k's kernel. Empty haplotypes get an
+    """--sw-mode banded on `device`: the CUDA band builder and banded
+    kernel (kernel=True, needs a CUDA device) or their plain PyTorch
+    versions (kernel=False). Per chunk the band bounds are built on the
+    device, on the current stream after the chunk's copy. The band
+    builder's wrapper waits for its count pass (it reads the match sums to
+    size the scratch), so chunk k's chain pass and banded DP, not its
+    count pass, overlap chunk k+1's host gather. Empty haplotypes get an
     empty band and score 0."""
 
-    def __init__(self, device: str = "cuda", kernel: bool = True,
-                 threads: int = 1):
+    def __init__(self, device: str = "cuda", kernel: bool = True):
         self.device = torch.device(device)
         if kernel and self.device.type != "cuda":
             raise ValueError("the CUDA kernel needs a CUDA device")
-        self.threads = max(int(threads), 1)
-        self._pair_calls = (banded_pair_calls if kernel
-                            else sw_banded_torch.banded_pair_calls)
+        self._bounds, self._pair_calls = (
+            (band_bounds, banded_pair_calls) if kernel
+            else (band_torch.band_bounds, sw_banded_torch.banded_pair_calls))
 
     def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int8 [R] call codes. x is a uint8 [R, lx] array or a provider
         `x(start, n)` -> uint8 [n, lx] rows with `.shape` == (R, lx); reads
-        ship dense, since the bounds are built from the dense rows on the
-        host. Outputs stay on the device until all chunks are launched."""
+        ship dense, the bytes the band builder compares. Outputs stay on
+        the device until all chunks are launched."""
         R, _ = x.shape
         _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
         dev = self.device
-        hap_mat = np.ascontiguousarray(hap_mat, np.uint8)
         hap = _to(hap_mat, np.uint8, dev)
         outs = []
         for start in range(0, R, CHUNK_READS):
             n = min(CHUNK_READS, R - start)
-            xc = np.ascontiguousarray(
-                x(start, n) if callable(x) else x[start : start + n],
-                np.uint8)
-            ir = idx_ref[start : start + n]
-            ia = idx_alt[start : start + n]
-            jlo, jhi = sw_native.band_bounds(xc, hap_mat, ir, ia,
-                                             self.threads)
-            outs.append(self._pair_calls(
-                _to(xc, np.uint8, dev), hap, _to(ir, np.int32, dev),
-                _to(ia, np.int32, dev), _to(jlo, np.int32, dev),
-                _to(jhi, np.int32, dev)))
+            xc = _to(x(start, n) if callable(x) else x[start : start + n],
+                     np.uint8, dev)
+            ir = _to(idx_ref[start : start + n], np.int32, dev)
+            ia = _to(idx_alt[start : start + n], np.int32, dev)
+            jlo, jhi = self._bounds(xc, hap, ir, ia)
+            outs.append(self._pair_calls(xc, hap, ir, ia, jlo, jhi))
         if not outs:
             return np.zeros(0, np.int8)
         return torch.cat(outs).cpu().numpy()

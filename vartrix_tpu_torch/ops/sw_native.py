@@ -2,9 +2,14 @@
 (csrc/band_bounds.cpp), the counterpart of the JAX package's
 ops/sw_native.banded_bounds_batch_native.
 
-`band_bounds` takes the padded matrices the pipeline already holds and
-returns int32 per-row band bounds in the banded kernel's [row][problem]
-layout; the library is built with g++ at first use.
+It is the port's exact host reference of the band, on no path of the
+program: banded runs build their bounds on the device (csrc/band_build.cu
+and its plain version ops/band_torch.py, through ops/sw_cuda.band_bounds),
+and the tests and chip_smoke.py hold both against this builder.
+
+`band_bounds` takes the padded matrices the pipeline holds and returns
+int32 per-row band bounds in the banded kernel's [row][problem] layout;
+the library is built with g++ at first use.
 """
 
 from __future__ import annotations
