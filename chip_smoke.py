@@ -15,29 +15,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. each kernel against its plain PyTorch version on the card, exact
      equality. sw_pair (int32 scores and int8 codes): dense and 2-bit reads
      over the shape families of the full path, the interleaved-index and
-     plain-row entries (the TPU kernels K5 and K6), and one read long
-     enough to take the scratch word near its 16-bit limit. band_build: its
-     int32 bounds against the plain version and the host reference on the
+     plain-row entries (the TPU kernels K5 and K6), one read long enough to
+     take the 32-bit scratch word near its 16-bit halves' limit, and reads
+     of 65,602 bases against a 70,000-base haplotype, scored above that
+     limit by the 64-bit word (two launches of one warp each, a minute or
+     more, on streams of their own beside the rest of this phase; every
+     other check waits on the default stream only). band_index: the k-mer
+     index of every banded family's haplotypes against its plain version.
+     band_build: its int32
+     bounds against the plain version and the host reference on the
      families of the banded path (main, bending bands, full bands, empty
      bands, empty haplotypes, raw bytes, ly=4032, a haplotype wider than
-     32,767 bases, low-complexity pairs with thousands of matches), and
-     against the host reference on one homopolymer locus at ly=4032 whose
-     matches need several chain-pass ranges. sw_banded: scores and codes
-     on those bounds against its plain version;
+     32,767 bases, low-complexity pairs with thousands of matches), with
+     32- and 64-bit chain keys, and against the host reference on one
+     homopolymer locus at ly=4032 whose matches need several chain-pass
+     ranges and on the 65,602-base reads. sw_banded: scores and codes on
+     those bounds against its plain version. A 100,000-base haplotype pair
+     (a deletion alt) against 2,048 reads, under scratch budgets small
+     enough that band_build, sw_banded and sw_pair each run several
+     ranges, against the plain versions and the host reference;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
      CUDA events: each kernel, its plain version, and its bound at the
      card's instruction issue rate (the SASS of each hot loop, cuobjdump)
      against its bytes; for sw_banded the instructions per cell of its
      core and of its masked zones, the cells it visits and the lane slots
-     its divergence leaves idle; for band_build the host reference's time
-     per pair (the route it replaced);
-  5. end to end: a seeded 500,000-read dataset through the driver in
+     its divergence leaves idle; for band_build (given its index) the host
+     reference's time per pair (the route it replaced); band_index on the
+     bucket's haplotype matrix, and torch.sort of the same keys;
+  5. end to end: a seeded 500,000-read dataset (generated in a worker
+     process while phase 3 runs) through the driver in
      --sw-mode full and banded, each with --backend cuda in the three
      scoring modes, each repeated with --backend torch; matrices must agree,
      each mode's kernels must have launched on its cuda runs and never on
-     the torch runs, the other mode's never, and the host band reference
-     never. The CLI entry (python -m vartrix_tpu_torch) runs on a small
-     dataset in both modes.
+     the torch runs, the other mode's never, the index once per shape
+     bucket, and the host band reference never. The CLI entry (python -m
+     vartrix_tpu_torch) runs on a small dataset in both modes.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -46,6 +58,7 @@ limit, and {"ok": true, "device": {...}}.
 import collections
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -53,7 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -63,9 +76,10 @@ HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_SM_CLK = 4 * 32
 # the instantiations the paths launch: full, 2-bit reads and int8 call
 # codes; banded, int8 call codes
-MAIN_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1E"
-BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1EE"
-CHAIN_KERNEL_SYMBOL = "chain_kernel"
+# (32-bit scratch words; 32-bit chain keys)
+MAIN_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
+BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1ELb0EE"
+CHAIN_KERNEL_SYMBOL = "chain_kernelIiE"
 # the SASS instruction that marks one DP cell in each kernel's hot loop:
 # the three-way H maximum with zero; and one chain DP step (64 candidate
 # predecessors) in band_build's: the warp-wide maximum
@@ -259,6 +273,55 @@ def near_limit_family(rng):
     alt[100] = bases[(np.searchsorted(bases, alt[100]) + 1) % 4]
     idx = np.zeros(1, np.int32)
     return read[None, :], np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
+
+
+def wide_full_family(rng, n_reads=4, n=65600, ly=70000):
+    """Reads of n + 2 bases, each the first n bases of a 70,000-base
+    haplotype with a 2-base insertion just before a 16-row strip boundary
+    (at a different depth per read); the alt haplotype has one substitution
+    at base 100. Known scores n - 7 (ref) and n - 13 (alt), above 65,535:
+    min(lx, ly) >= 65536 takes the kernels' 64-bit scratch word."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    hap = rng.choice(bases, ly)
+    alt = hap.copy()
+    alt[100] = bases[(np.searchsorted(bases, alt[100]) + 1) % 4]
+    x = np.zeros((n_reads, n + 4), np.uint8)  # lx a multiple of 4 (2-bit)
+    for r in range(n_reads):
+        p = 16 * (1025 + 1024 * r) - 1
+        x[r, : n + 2] = np.concatenate(
+            [hap[:p], np.frombuffer(b"AC", np.uint8), hap[p:n]])
+    idx = np.zeros(n_reads, np.int32)
+    return x, np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
+
+
+def long_hap_family(rng, n_reads=2048, lx=160, ly=100_000):
+    """2,048 reads of 140-150 bases (1 % errors) sampled from a
+    100,000-base haplotype and from its alt, the same with 50 bases
+    deleted at base 50,000: a long deletion locus, whose DP scratch
+    (ly words per problem) and band scratch (thousands of chance 6-mer
+    matches per problem) exceed small budgets."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(bases, ly)
+    alt = np.concatenate([ref[:50_000], ref[50_050:]])
+    haps = np.ones((2, ly), np.uint8)
+    haps[0] = ref
+    haps[1, : len(alt)] = alt
+    x = np.zeros((n_reads, lx), np.uint8)
+    lens = rng.integers(140, 151, n_reads)
+    for r in range(n_reads):
+        src = ref if r % 2 == 0 else alt
+        o = int(rng.integers(0, len(src) - lens[r] + 1))
+        if r % 8 == 1:  # reads across the deletion point
+            o = 50_000 - int(rng.integers(10, lens[r] - 10))
+        x[r, : lens[r]] = src[o : o + lens[r]]
+    err = (rng.random(x.shape) < 0.01) & (x != 0)
+    x[err] = rng.choice(bases, int(err.sum()))
+    idx = np.zeros(n_reads, np.int32)
+    return x, haps, idx, idx + 1
 
 
 def unseeded_family(rng, n_reads, lx, ly):
@@ -583,7 +646,7 @@ def phase_equality(rng):
         for form, reads, lens in forms:
             got = sw_cuda.pair_scores(reads, ht, irt, iat, read_lens=lens)
             codes = sw_cuda.pair_calls(reads, ht, irt, iat, read_lens=lens)
-            torch.cuda.synchronize()
+            sync()
             err = int((got - plain).abs().max().item()) if len(x) else 0
             bad = int((codes != plain_codes).sum().item())
             worst = max(worst, err)
@@ -619,6 +682,97 @@ def phase_equality(rng):
     return worst
 
 
+def start_wide_pair(rng):
+    """Launches sw_pair's 64-bit scratch word on wide_full_family, dense
+    scores and 2-bit codes, each on a stream of its own (one warp each, for
+    a minute or more), so they run beside the rest of phase 3, whose work
+    stays on the default stream. Returns finish() -> max |err|: the
+    results against the plain version and the known scores."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda, sw_torch
+
+    x, haps, ir, ia, known = wide_full_family(rng)
+    if not sw_cuda.wide_word(x.shape[1], haps.shape[1]):
+        fail("the wide family does not take the 64-bit scratch word")
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    xp, lens = pack2(x)
+    xpt, lt = torch.from_numpy(xp).cuda(), torch.from_numpy(lens).cuda()
+    n0 = sw_cuda.LAUNCHES
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in streams]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    # the inputs come from the default stream's pool: without these, a
+    # tensor freed here (xpt, lt) goes back to that pool while a kernel
+    # still reads it, and the next default-stream allocation overwrites it
+    for t, st in ((xt, 0), (ht, 0), (irt, 0), (iat, 0), (xpt, 1), (ht, 1),
+                  (irt, 1), (iat, 1), (lt, 1)):
+        t.record_stream(streams[st])
+    with torch.cuda.stream(streams[0]):
+        events[0][0].record()
+        got = sw_cuda.pair_scores(xt, ht, irt, iat)
+        events[0][1].record()
+    with torch.cuda.stream(streams[1]):
+        events[1][0].record()
+        codes = sw_cuda.pair_calls(xpt, ht, irt, iat, read_lens=lt)
+        events[1][1].record()
+    n = sw_cuda.LAUNCHES - n0
+
+    def finish():
+        t0 = time.perf_counter()
+        plain = sw_torch.pair_scores(xt, ht, irt, iat)
+        sync()
+        plain_dt = time.perf_counter() - t0
+        for st in streams:
+            st.synchronize()
+        kernel_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+        err = int((got - plain).abs().max().item())
+        bad = int((codes != sw_torch.calls_from_scores(plain)).sum().item())
+        log(f"sw_pair wide        dense+2bit R={len(x)} lx={x.shape[1]} "
+            f"ly={haps.shape[1]} (64-bit scratch word): kernel "
+            f"{got.T.tolist()}, known {known} per read, max|err|={err} code "
+            f"mismatches={bad}; {n} launches, {kernel_s[0]:.2f} s (scores) "
+            f"and {kernel_s[1]:.2f} s (2-bit, codes), each on its own "
+            f"stream; plain {plain_dt:.1f} s")
+        if err or bad or n != 2 or (got.T.cpu() != torch.tensor(known)).any():
+            fail("the 64-bit scratch word disagrees with the plain version "
+                 "or the known scores")
+        return err
+
+    return finish
+
+
+def sync():
+    """Waits for the default stream's work: phase 3's checks run there,
+    beside start_wide_pair's streams."""
+    import torch
+
+    torch.cuda.current_stream().synchronize()
+
+
+def check_index(name, ht):
+    """band_index on the card against its plain version: (the index,
+    entries that differ)."""
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch, sw_cuda
+
+    got = sw_cuda.band_index(ht)
+    exp = band_torch.band_index(ht)
+    n = (exp.hap_len.long() - 5).clamp_min(0)
+    valid = torch.arange(ht.shape[1], device=ht.device)[None, :] < n[:, None]
+    bad = (int((got.hap_len != exp.hap_len).sum().item())
+           + int((got.keys != exp.keys)[valid].sum().item())
+           + int((got.pos != exp.pos)[valid].sum().item()))
+    log(f"band_index {name:11s} H={ht.shape[0]} ly={ht.shape[1]}: "
+        f"{int(n.sum().item())} keys, mismatches vs plain {bad}")
+    if bad:
+        fail(f"band_index disagrees with the plain version on {name}")
+    return got, bad
+
+
 def phase_banded_equality(rng, threads):
     """band_build against its plain version and the host reference, and
     sw_banded against its plain version on the kernel's bounds, on every
@@ -647,15 +801,27 @@ def phase_banded_equality(rng, threads):
         "wide_40000": wide_family(rng),
         "repetitive": repetitive_family(rng),
     }
-    worst = band_worst = 0
+    worst = band_worst = index_worst = 0
     for name, (x, haps, ir, ia) in families.items():
         host = sw_native.band_bounds(x, haps, ir, ia, threads)
         xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
-        got = sw_cuda.band_bounds(xt, ht, irt, iat)
+        index, bad = check_index(name, ht)
+        index_worst = max(index_worst, bad)
+        got = sw_cuda.band_bounds(xt, ht, irt, iat, index)
         plain = band_torch.band_bounds(xt, ht, irt, iat)
-        torch.cuda.synchronize()
+        sync()
         bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
                   for g, h, q in zip(got, host, plain))
+        if name in ("main", "repetitive"):  # the 64-bit chain keys
+            saved, sw_cuda.BAND_WIDE_KEYS_LX = sw_cuda.BAND_WIDE_KEYS_LX, 0
+            try:
+                wide = sw_cuda.band_bounds(xt, ht, irt, iat, index)
+            finally:
+                sw_cuda.BAND_WIDE_KEYS_LX = saved
+            nw = sum(int((w != g).sum().item()) for w, g in zip(wide, got))
+            log(f"band_build {name:11s} 64-bit chain keys: mismatches vs "
+                f"32-bit {nw}")
+            bad += nw
         band_worst = max(band_worst, *(
             int(np.abs(g.cpu().numpy().astype(np.int64) - h).max(initial=0))
             for g, h in zip(got, host)))
@@ -693,7 +859,7 @@ def phase_banded_equality(rng, threads):
                                  x.shape[1], sw_cuda.BAND_SCRATCH_BYTES)
     t0 = time.perf_counter()
     got = sw_cuda.band_bounds(xt, ht, irt, iat)
-    torch.cuda.synchronize()
+    sync()
     dt = time.perf_counter() - t0
     host = sw_native.band_bounds(x, haps, ir, ia, threads)
     bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
@@ -710,7 +876,106 @@ def phase_banded_equality(rng, threads):
         fail("the homopolymer locus fits one chain-pass range")
     err, _ = check_banded("homopolymer", (xt, ht, irt, iat) + tuple(got))
     worst = max(worst, err)
-    return band_worst, worst
+    worst = max(worst, check_wide_banded(rng, threads))
+    err, bad = check_long_hap(rng, threads)
+    return max(band_worst, bad), max(worst, err), index_worst
+
+
+def check_wide_banded(rng, threads):
+    """band_build past 2^31 cells per problem and sw_banded's 64-bit
+    scratch word on wide_full_family: the bounds against the host
+    reference (the plain builder's all-pairs mask would hold 4.6 G cells
+    per problem), the banded scores against the plain version and the
+    known scores."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda, sw_native
+
+    x, haps, ir, ia, known = wide_full_family(rng)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    t0 = time.perf_counter()
+    got = sw_cuda.band_bounds(xt, ht, irt, iat)
+    sync()
+    dt = time.perf_counter() - t0
+    host = sw_native.band_bounds(x, haps, ir, ia, threads)
+    bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
+    log(f"band_build wide R={len(x)} lx={x.shape[1]} ly={haps.shape[1]} "
+        f"({x.shape[1] * haps.shape[1]} cells per problem): bound "
+        f"mismatches vs host {bad}; {dt:.3f} s")
+    if bad:
+        fail("band_build disagrees with the host reference on the wide "
+             "family")
+    n0 = sw_cuda.BANDED_LAUNCHES
+    err, ref = check_banded("wide", (xt, ht, irt, iat) + tuple(got))
+    if (ref.T.cpu() != torch.tensor(known)).any() or \
+            sw_cuda.BANDED_LAUNCHES - n0 != 2:
+        fail("sw_banded's 64-bit scratch word: not the known scores")
+    return err
+
+
+def check_long_hap(rng, threads):
+    """long_hap_family under 64 MiB scratch budgets: band_index once,
+    band_build (several chain-pass ranges) against the plain version and
+    the host reference, sw_banded (scores and codes) and sw_pair (scores)
+    over several read ranges against their plain versions. Returns (max
+    |err| of the DP kernels, bound mismatches)."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch, sw_cuda, sw_native, sw_torch
+
+    x, haps, ir, ia = long_hap_family(rng)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    saved = sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES
+    sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 64 << 20
+    try:
+        n0 = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
+              sw_cuda.BAND_LAUNCHES)
+        t0 = time.perf_counter()
+        index, _ = check_index("long_hap", ht)
+        got = sw_cuda.band_bounds(xt, ht, irt, iat, index)
+        sync()
+        dt = time.perf_counter() - t0
+        n_band = sw_cuda.BAND_LAUNCHES - n0[2]
+        args = (xt, ht, irt, iat) + tuple(got)
+        err, _ = check_banded("long_hap", args)
+        n_banded = (sw_cuda.BANDED_LAUNCHES - n0[1]) // 2
+        pair = sw_cuda.pair_scores(xt, ht, irt, iat)
+        sync()
+        n_pair = sw_cuda.LAUNCHES - n0[0]
+    finally:
+        sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES = saved
+    t1 = time.perf_counter()
+    plain = band_torch.band_bounds(xt, ht, irt, iat)
+    sync()
+    t2 = time.perf_counter()
+    plain_pair = sw_torch.pair_scores(xt, ht, irt, iat)
+    sync()
+    plain_dt = (t2 - t1, time.perf_counter() - t2)
+    host = sw_native.band_bounds(x, haps, ir, ia, threads)
+    bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
+              for g, h, q in zip(got, host, plain))
+    pair_err = int((pair - plain_pair).abs().max().item())
+    matches = match_counts(xt, ht, irt, iat)
+    log(f"band_build long_hap R={len(x)} lx={x.shape[1]} ly={haps.shape[1]}"
+        f": bound mismatches vs host and plain {bad}; matches per problem "
+        f"max {int(matches.max())}, total {int(matches.sum())}; "
+        f"{n_band} chain-pass ranges, {dt:.3f} s with the index; plain "
+        f"builder {plain_dt[0]:.1f} s, plain sw_pair {plain_dt[1]:.1f} s")
+    log(f"sw_pair long_hap dense R={len(x)}: max|err|={pair_err}, max score "
+        f"{int(plain_pair.max().item())}; {n_pair} read ranges; sw_banded "
+        f"{n_banded} read ranges per call")
+    if bad:
+        fail("band_build disagrees with the host reference or the plain "
+             "version on the long haplotype")
+    if pair_err:
+        fail("sw_pair disagrees with the plain version on the long "
+             "haplotype")
+    if min(n_band, n_banded, n_pair) < 2:
+        fail("a kernel ran the long haplotype in one range")
+    if plain_pair.max(dim=0).values.min().item() <= 100:
+        fail("a read of the long haplotype family does not score")
+    return max(err, pair_err), bad
 
 
 def check_banded(name, args):
@@ -721,14 +986,17 @@ def check_banded(name, args):
 
     from vartrix_tpu_torch.ops import sw_banded_torch, sw_cuda, sw_torch
 
+    t0 = time.perf_counter()
     ref = sw_banded_torch.banded_pair_scores(*args)
+    sync()
+    dt = time.perf_counter() - t0
     sc = sw_cuda.banded_pair_scores(*args)
     codes = sw_cuda.banded_pair_calls(*args)
-    torch.cuda.synchronize()
+    sync()
     err = int((sc - ref).abs().max().item())
     bad = int((codes != sw_torch.calls_from_scores(ref)).sum().item())
     log(f"sw_banded {name:11s}: max|err|={err} code mismatches={bad}; max "
-        f"score {int(ref.max().item())}")
+        f"score {int(ref.max().item())}; plain {dt:.1f} s")
     if err or bad:
         fail(f"sw_banded disagrees with the plain version on {name}")
     return err, ref
@@ -793,7 +1061,8 @@ def phase_timing(rng, instr_per_cell, clock_hz):
         f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of the kernel's "
         f"time; library_ms null: no PyTorch call computes Smith-Waterman")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None)
 
 
 def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
@@ -829,9 +1098,10 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
     sw_native.band_bounds(x, haps, ir, ia, threads)
     host_us = (time.perf_counter() - t0) / pairs * 1e6
     args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
-    band_ms = time_cuda(lambda: sw_cuda.band_bounds(*args), 3, 15)
+    index = sw_cuda.band_index(args[1])
+    band_ms = time_cuda(lambda: sw_cuda.band_bounds(*args, index), 3, 15)
     band_plain_ms = time_cuda(lambda: band_torch.band_bounds(*args), 1, 2)
-    jlo_t, jhi_t = sw_cuda.band_bounds(*args)
+    jlo_t, jhi_t = sw_cuda.band_bounds(*args, index)
     jlo, jhi = jlo_t.cpu().numpy(), jhi_t.cpu().numpy()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_per_s = sms * ISSUE_PER_SM_CLK * clock_hz
@@ -848,7 +1118,8 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
     b_bound = max(b_ops_ms, b_bytes_ms)
     log(f"timing band_build at lx={MAIN_LX} ly={MAIN_LY}, {pairs} pairs: "
         f"{band_ms:.4f} ms ({band_ms / pairs * 1e6:.4f} ns per pair; count, "
-        f"device sum, one read of the sums, chain); plain {band_plain_ms:.3f}"
+        f"device sum, one read of the total, chain; the index built "
+        f"before); plain {band_plain_ms:.3f}"
         f" ms; host reference (the route it replaced) {host_us:.3f} us per "
         f"pair on {threads} threads, {one_us:.3f} us on one")
     log(f"timing band_build bound: ({lookups} key lookups x "
@@ -860,7 +1131,9 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
         f"{b_bound:.4f} ms, {100 * b_bound / band_ms:.1f} % of the kernel's "
         "time; library_ms null: no PyTorch call builds a chained band")
     band = dict(ms=band_ms, plain_ms=band_plain_ms, bound_ms=b_bound,
-                bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes")
+                bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes",
+                library_ms=None)
+    index_timing = time_index(args[1], issue_per_s)
     # sw_banded on the kernel's bounds
     dp_args = args + (jlo_t, jhi_t)
     ms = time_cuda(lambda: sw_cuda.banded_pair_calls(*dp_args), 3, 15)
@@ -896,8 +1169,46 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
         f"({100 * issued_ms / ms:.1f} % of its time); its warps leave "
         f"{100 * idle:.1f} % of lane slots idle")
     banded = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                  bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-    return band, banded
+                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                  library_ms=None)
+    return band, banded, index_timing
+
+
+def time_index(ht, issue_per_s):
+    """band_index on one bucket's haplotype matrix: kernel, plain version,
+    and torch.sort of the same keys (the library call that sorts them;
+    the port never calls it). Bound: the haplotype bytes read once and
+    the index (12 bytes per key, 4 per row length) written once, against
+    one placement per key and merge pass (n ceil(log2 n) per row) at the
+    issue rate."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch, sw_cuda
+
+    ms = time_cuda(lambda: sw_cuda.band_index(ht), 3, 15)
+    plain_ms = time_cuda(lambda: band_torch.band_index(ht), 1, 3)
+    hap_len = band_torch.true_lengths(ht, 1)
+    keys = band_torch.kmer_keys(ht, hap_len, (1 << 63) - 1)
+    library_ms = time_cuda(lambda: torch.sort(keys, dim=1, stable=True),
+                           3, 15)
+    n = np.maximum(hap_len.cpu().numpy() - 5, 0)
+    passes = np.ceil(np.log2(np.maximum(n, 1)))
+    ops_ms = float((n * passes).sum()) / issue_per_s * 1e3
+    nbytes = ht.numel() + 12 * int(n.sum()) + 4 * ht.shape[0]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"timing band_index H={ht.shape[0]} ly={ht.shape[1]} "
+        f"({int((n > 0).sum())} rows with keys, {int(n.sum())} keys): "
+        f"{ms:.4f} ms; plain {plain_ms:.3f} ms; torch.sort of the keys "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes / "
+        f"{HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; "
+        f"{int((n * passes).sum())} placements / {issue_per_s:.6g} "
+        f"instructions/s = {ops_ms:.4f} ms), {100 * bound_ms / ms:.1f} % of "
+        "the kernel's time")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=library_ms)
 
 
 def read_mtx(path):
@@ -930,15 +1241,25 @@ def entries_differing(a, b):
                    or (math.isnan(ea[k]) and math.isnan(eb[k])))))
 
 
-def phase_e2e(work):
+def generate_e2e(work):
+    """Phase 5's dataset (run in a worker process during phase 3): (the
+    dataset's paths and read count, seconds taken)."""
+    from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
+
+    t0 = time.perf_counter()
+    data = generate_dataset(os.path.join(work, "e2e"), SynthConfig(**E2E_CFG))
+    return data, time.perf_counter() - t0
+
+
+def phase_e2e(work, data):
     """Both paths, full then banded, each in the three modes with --backend
-    cuda and then torch. Every kernel's count is zeroed just before each
-    (path, backend) group and read just after; returns the launches of the
-    full path's cuda runs (sw_pair) and the banded path's (sw_banded,
-    band_build). The host band reference must never be called."""
+    cuda and then torch, on generate_e2e's dataset. Every kernel's count is
+    zeroed just before each (path, backend) group and read just after;
+    returns the launches of the full path's cuda runs (sw_pair) and the
+    banded path's (sw_banded, band_build, band_index). The host band
+    reference must never be called."""
     from vartrix_tpu_torch import driver
     from vartrix_tpu_torch.ops import sw_cuda, sw_native
-    from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
     host_calls = [0]
     band_bounds = sw_native.band_bounds
@@ -948,22 +1269,30 @@ def phase_e2e(work):
         return band_bounds(*args, **kwargs)
 
     sw_native.band_bounds = counted_band_bounds
-    t0 = time.perf_counter()
-    data = generate_dataset(os.path.join(work, "e2e"), SynthConfig(**E2E_CFG))
+    buckets = [0]
+    pair_calls = sw_cuda.BandedSwBackend.pair_calls_chained
+
+    def counted_pair_calls(self, *args):
+        buckets[0] += 1
+        return pair_calls(self, *args)
+
+    sw_cuda.BandedSwBackend.pair_calls_chained = counted_pair_calls
     n_reads = data["n_reads"]
-    log(f"e2e: generated {n_reads} reads in {time.perf_counter() - t0:.1f}s")
     modes = {"consensus": ["-s", "consensus"],
              "coverage_umi": ["-s", "coverage", "--umi"],
              "alt_frac": ["-s", "alt_frac"]}
     backends = {"cuda": ["--backend", "cuda"],
                 "torch": ["--backend", "torch", "--device", "cuda"]}
-    own = {"full": {"sw_pair"}, "banded": {"sw_banded", "band_build"}}
+    own = {"full": {"sw_pair"},
+           "banded": {"sw_banded", "band_build", "band_index"}}
     outs = {}
     launches = {}
+    n_buckets = {}
     for sw_mode in own:
         for be, be_args in backends.items():
             sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
-            sw_cuda.BAND_LAUNCHES = 0
+            sw_cuda.BAND_LAUNCHES = sw_cuda.INDEX_LAUNCHES = 0
+            buckets[0] = 0
             for mode, mode_args in modes.items():
                 tag = f"{sw_mode}_{mode}_{be}"
                 out = os.path.join(work, f"{tag}.mtx")
@@ -989,9 +1318,12 @@ def phase_e2e(work):
                 outs[sw_mode, mode, be] = (out, ref)
             launches[sw_mode, be] = {"sw_pair": sw_cuda.LAUNCHES,
                                      "sw_banded": sw_cuda.BANDED_LAUNCHES,
-                                     "band_build": sw_cuda.BAND_LAUNCHES}
+                                     "band_build": sw_cuda.BAND_LAUNCHES,
+                                     "band_index": sw_cuda.INDEX_LAUNCHES}
+            n_buckets[sw_mode, be] = buckets[0]
             log(f"e2e {sw_mode} {be}: launches over the three runs "
-                f"{launches[sw_mode, be]}")
+                f"{launches[sw_mode, be]}; banded shape buckets "
+                f"{buckets[0]}")
     for sw_mode, kernels in own.items():
         for be in backends:
             for name, n in launches[sw_mode, be].items():
@@ -1008,6 +1340,12 @@ def phase_e2e(work):
                 fail(f"{sw_mode} {mode}: the kernel's matrices differ from "
                      "the plain version's")
     sw_native.band_bounds = band_bounds
+    sw_cuda.BandedSwBackend.pair_calls_chained = pair_calls
+    got, want = (launches["banded", "cuda"]["band_index"],
+                 n_buckets["banded", "cuda"])
+    log(f"e2e banded cuda: index launches {got}, shape buckets {want}")
+    if got != want:
+        fail("the band index was not built once per shape bucket")
     log(f"e2e: host band reference calls over every run: {host_calls[0]}")
     if host_calls[0]:
         fail("a run built band bounds on the host")
@@ -1019,7 +1357,8 @@ def phase_e2e(work):
                if mode == "coverage_umi" else ""))
     return {"sw_pair": launches["full", "cuda"]["sw_pair"],
             "sw_banded": launches["banded", "cuda"]["sw_banded"],
-            "band_build": launches["banded", "cuda"]["band_build"]}
+            "band_build": launches["banded", "cuda"]["band_build"],
+            "band_index": launches["banded", "cuda"]["band_index"]}
 
 
 def phase_cli(work):
@@ -1070,16 +1409,34 @@ def main():
     pair_instr, zones, per_candidate = phase_sass(paths)
     threads = os.cpu_count() or 1
     rng = np.random.default_rng(2024)
-    worst = phase_equality(rng)
-    band_worst, banded_worst = phase_banded_equality(rng, threads)
-    timing = phase_timing(rng, pair_instr, clock_hz)
-    band_timing, banded_timing = phase_banded_timing(
-        rng, pair_instr, zones, per_candidate, clock_hz, threads)
+
+    def done(phase):
+        log(f"{phase} done at {time.perf_counter() - t_start:.1f}s")
+
+    done("build")
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        launches = phase_e2e(work)
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            e2e_data = pool.submit(generate_e2e, work)
+            finish_wide = start_wide_pair(rng)
+            worst = phase_equality(rng)
+            done("sw_pair equality")
+            band_worst, banded_worst, index_worst = phase_banded_equality(
+                rng, threads)
+            worst = max(worst, finish_wide())
+            done("banded equality")
+            data, gen_s = e2e_data.result()
+        log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in a "
+            "worker process, during phase 3)")
+        timing = phase_timing(rng, pair_instr, clock_hz)
+        band_timing, banded_timing, index_timing = phase_banded_timing(
+            rng, pair_instr, zones, per_candidate, clock_hz, threads)
+        done("timing")
+        launches = phase_e2e(work, data)
+        done("e2e")
         phase_cli(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1096,19 +1453,23 @@ def main():
          "vartrix_tpu/ops/sw_pallas_v2.py:1945 (no TPU kernel: the host band "
          "construction of make_banded_tpu_scorer)",
          band_worst, band_timing, "no PyTorch call builds a chained band"),
+        ("band_index", "vartrix_tpu_torch/csrc/band_build.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:1945 (no TPU kernel: the k-mer "
+         "lookup of the host band construction of make_banded_tpu_scorer)",
+         index_worst, index_timing, "torch.sort of the same keys"),
     ]
     record = {"kernels": []}
     for name, source, replaces, err, t, note in kernels:
         n = launches[name]
         log(f"{name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library_ms null, "
-            f"{n} launches on its path")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library_ms "
+            f"{t['library_ms']} ({note}), {n} launches on its path")
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t["library_ms"],
             "library_note": note,
         })
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -269,7 +269,7 @@ def test_banded_run_byte_equal_to_jax(tmp_path, data, mode):
     payload = json.loads(mj.read_text())
     assert payload["config"]["sw_mode"] == "banded"
     assert payload["kernel_launches"] == {"sw_pair": 0, "sw_banded": 0,
-                                          "band_build": 0}
+                                          "band_build": 0, "band_index": 0}
 
 
 def test_banded_run_byte_equal_to_jax_k4(tmp_path, data):

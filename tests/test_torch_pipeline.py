@@ -52,7 +52,7 @@ def test_matrices_byte_equal_to_jax(tmp_path, data, mode):
     payload = json.loads(mj.read_text())
     assert payload["config"]["device"] == "cpu"
     assert payload["kernel_launches"] == {"sw_pair": 0, "sw_banded": 0,
-                                          "band_build": 0}
+                                          "band_build": 0, "band_index": 0}
     assert payload["metrics"]["num_reads"] > 0
 
 

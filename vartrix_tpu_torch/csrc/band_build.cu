@@ -23,40 +23,54 @@
 //     consecutive anchors, the two corner diagonals, clamped to
 //     [0, len_x) x [0, len_y); rows left uncovered or past len_x: [0, 0).
 //
-// Design. Three kernels, launched by one wrapper call
-// (ops/sw_cuda.band_bounds):
-//   1. hap_keys_kernel: one warp per haplotype row: its true length and the
-//      key of every 6-mer, once per row and launch, not once per problem;
-//   2. count_kernel: one warp per problem counts its matches (the warp's
-//      lanes take 32 haplotype positions, the read's keys broadcast by
-//      shuffle); the wrapper sums the counts on the card (torch.cumsum)
-//      and reads the total once, so the match scratch is sized exactly:
-//      a repetitive pair may have (len_x - 5)(len_y - 5) matches, and the
+// Design. Matches are looked up in a per-haplotype k-mer index, built once
+// for a haplotype matrix and kept for every launch over it (ops/sw_cuda
+// band_index builds it once per shape bucket):
+//   1. index_kernel: one block per haplotype row: its true length, then its
+//      len_y - 5 6-mer keys sorted by (key, j): every row is cut into runs
+//      of one key, then runs of 2, 4, ... are merged in global memory (each
+//      element finds its place by a binary search in the other run; on
+//      equal keys the left run's elements, of smaller j, go first), so the
+//      matches of one read 6-mer are one run of the sorted keys, ascending
+//      in j. Pad rows (len_y = 0) stop after the length scan;
+//   2. count_kernel: one warp per problem; each lane takes one read
+//      position, looks its key up (two binary searches) and adds the run's
+//      length. The wrapper sums the counts on the card (torch.cumsum) and
+//      reads the total once, so the match scratch is sized exactly: a
+//      repetitive pair may have (len_x - 5)(len_y - 5) matches, and the
 //      traceback needs every match's predecessor. Where all of a launch's
 //      matches would not fit the wrapper's scratch budget, it reads every
 //      problem's sum, cuts the problems into ranges that fit and runs the
 //      chain pass once per range;
-//   3. chain_kernel: one warp per problem of a range enumerates the
-//      matches again in (i, j) order (__ballot_sync over 32 haplotype
-//      positions, set bits taken lowest first) and runs the chain DP as it
-//      goes: the last 64 matches live in a ring of registers, two slots
+//   3. chain_kernel: one warp per problem of a range looks up the runs of
+//      32 read positions at once, then walks i in order and each run's j in
+//      order, so the matches come in (i, j) order, and runs the chain DP as
+//      it goes: the last 64 matches live in a ring of registers, two slots
 //      per lane, so each lane scores two candidate predecessors and one
-//      __reduce_max_sync over (score, nearness) keys applies the tie
-//      rules. Lane 0 stores each match and its predecessor; the warp then
-//      walks the best chain back, widening each anchor over a
+//      __reduce_max_sync over (score, nearness) keys applies the tie rules.
+//      Lane 0 stores each match and its distance to its predecessor; the
+//      warp then walks the best chain back, widening each anchor over a
 //      problem-major work buffer [problem][row] (coalesced across lanes),
 //      and writes the bounds in the DP's [row][problem] layout.
+//
+// Widths. A chain score is at most len_x, so its key (score x 64 +
+// nearness) fits int32 while lx < 2^25; past that the wrapper launches the
+// instantiation with 64-bit keys (two 32-bit warp reductions per match).
+// Match indices and scratch offsets are 64-bit; the ring addresses its
+// slots with a 32-bit index that steps back by 2^30 every 2^30 matches, and
+// a predecessor is stored as its distance (1..64), so no per-match value
+// passes 2^31.
 //
 // Bound. The bytes are small (reads, haplotypes and indices in, 8 bytes of
 // bounds per read row and problem out); the work is integer instructions:
 // len_x - 5 key lookups per problem plus, per match, its up to 64 chain
 // candidates at the cost of scoring one (`candidate` and one max), at the
 // instruction issue rate (chip_smoke.py prints both, and this kernel's own
-// SASS instructions per candidate beside them). This simple design
-// compares every read 6-mer with every haplotype 6-mer (no hash), which
-// costs (len_x - 5)(len_y - 5) / 32 warp steps per pass, twice; the chain
-// DP's warp-wide reduction per match is the other overhead against that
-// bound.
+// SASS instructions per candidate beside them). The index takes the
+// all-pairs scans out of both passes; the chain DP's warp-wide step per
+// match (~2.4x the bound's instructions per candidate: the reduction,
+// the ring upkeep and the stores) is what remains between this kernel
+// and its bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,8 +85,9 @@ constexpr int kGapOpen = -5;
 constexpr int kGapExtend = -1;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kIndexThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNoKey = ~0ull;  // real keys are < 2^48
+constexpr int kRebase = 1 << 30;  // ring index step-back
 
 __device__ __forceinline__ unsigned long long kmer_key(
     const uint8_t* __restrict__ p) {
@@ -97,27 +112,88 @@ __device__ int warp_true_len(const uint8_t* __restrict__ row, int width,
   return 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-hap_keys_kernel(const uint8_t* __restrict__ haps, int n_haps, int ly,
-                unsigned long long* __restrict__ keys,
-                int32_t* __restrict__ hap_len) {
-  const int h = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (h >= n_haps) return;
-  const int lane = threadIdx.x & 31;
-  const uint8_t* row = haps + static_cast<size_t>(h) * ly;
-  const int len = warp_true_len(row, ly, 1);
-  unsigned long long* out = keys + static_cast<size_t>(h) * ly;
-  for (int j = lane; j < ly; j += 32) {
-    out[j] = j + kK <= len ? kmer_key(row + j) : kNoKey;
+// First index of a[0, n) whose key is not below v (kOrEqual: above v).
+template <bool kOrEqual>
+__device__ __forceinline__ int search(const unsigned long long* a, int n,
+                                      unsigned long long v) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    const unsigned long long k = a[lo + half];
+    if (kOrEqual ? k <= v : k < v) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
   }
-  if (lane == 0) hap_len[h] = len;
+  return lo;
+}
+
+// The index of one haplotype row: its true length, then keys[0, n) and
+// pos[0, n) (n = len_y - 5) its 6-mer keys and their positions, sorted by
+// (key, j). The merge passes alternate between (keys, pos) and (tmp_keys,
+// tmp_pos), starting where the last pass ends in (keys, pos). Plain loads:
+// the buffers are written inside this kernel.
+__global__ void __launch_bounds__(kIndexThreads)
+index_kernel(const uint8_t* __restrict__ haps, int ly,
+             unsigned long long* keys, int32_t* pos,
+             unsigned long long* tmp_keys, int32_t* tmp_pos,
+             int32_t* __restrict__ hap_len) {
+  const size_t h = blockIdx.x;
+  const uint8_t* row = haps + h * ly;
+  __shared__ int s_len;
+  if (threadIdx.x < 32) {
+    const int len = warp_true_len(row, ly, 1);
+    if (threadIdx.x == 0) {
+      s_len = len;
+      hap_len[h] = len;
+    }
+  }
+  __syncthreads();
+  const int n = s_len - kK + 1;
+  if (n <= 0) return;
+  const int passes = n > 1 ? 32 - __clz(n - 1) : 0;
+  unsigned long long* ka = (passes & 1 ? tmp_keys : keys) + h * ly;
+  unsigned long long* kb = (passes & 1 ? keys : tmp_keys) + h * ly;
+  int32_t* pa = (passes & 1 ? tmp_pos : pos) + h * ly;
+  int32_t* pb = (passes & 1 ? pos : tmp_pos) + h * ly;
+  for (int j = threadIdx.x; j < n; j += kIndexThreads) {
+    ka[j] = kmer_key(row + j);
+    pa[j] = j;
+  }
+  __syncthreads();
+  for (int w = 1; w < n; w <<= 1) {
+    for (int e = threadIdx.x; e < n; e += kIndexThreads) {
+      const int start = e & ~(2 * w - 1);  // the merged pair's first element
+      const bool left = (e & w) == 0;
+      const unsigned long long v = ka[e];
+      int at;
+      if (left) {
+        const int m = max(0, min(w, n - start - w));
+        at = e + search<false>(ka + start + w, m, v);
+      } else {
+        at = e - w + search<true>(ka + start, w, v);
+      }
+      kb[at] = v;
+      pb[at] = pa[e];
+    }
+    __syncthreads();
+    unsigned long long* kt = ka;
+    ka = kb;
+    kb = kt;
+    int32_t* pt = pa;
+    pa = pb;
+    pb = pt;
+  }
 }
 
 // One problem as the warp sees it.
 struct Problem {
   const uint8_t* x;                // read bytes
   int len_x;
-  const unsigned long long* keys;  // the haplotype's 6-mer keys
+  const unsigned long long* keys;  // the haplotype's sorted 6-mer keys
+  const int32_t* pos;              // and their positions
   int len_y;
 };
 
@@ -125,16 +201,30 @@ __device__ Problem load_problem(const uint8_t* __restrict__ reads, int lx,
                                 int ly, const int32_t* __restrict__ idx_ref,
                                 const int32_t* __restrict__ idx_alt,
                                 const unsigned long long* __restrict__ keys,
+                                const int32_t* __restrict__ pos,
                                 const int32_t* __restrict__ hap_len,
                                 size_t p) {
   const size_t read = p >> 1;
-  const int hidx = __ldg(((p & 1) ? idx_alt : idx_ref) + read);
+  const size_t hidx = __ldg(((p & 1) ? idx_alt : idx_ref) + read);
   Problem q;
   q.x = reads + read * lx;
   q.len_x = warp_true_len(q.x, lx, 0);
-  q.keys = keys + static_cast<size_t>(hidx) * ly;
+  q.keys = keys + hidx * ly;
+  q.pos = pos + hidx * ly;
   q.len_y = __ldg(hap_len + hidx);
   return q;
+}
+
+// This lane's run [lo, hi) of the haplotype's sorted keys: the matches of
+// read position i (none when i >= n_i).
+__device__ __forceinline__ void lookup(const Problem& q, int i, int n_i,
+                                       int n_j, int& lo, int& hi) {
+  lo = hi = 0;
+  if (i < n_i) {
+    const unsigned long long kx = kmer_key(q.x + i);
+    lo = search<false>(q.keys, n_j, kx);
+    hi = lo + search<true>(q.keys + lo, n_j - lo, kx);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -142,6 +232,7 @@ count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              const int32_t* __restrict__ idx_ref,
              const int32_t* __restrict__ idx_alt,
              const unsigned long long* __restrict__ keys,
+             const int32_t* __restrict__ pos,
              const int32_t* __restrict__ hap_len,
              long long* __restrict__ counts) {
   const size_t p = static_cast<size_t>(blockIdx.x) * kWarps +
@@ -149,23 +240,14 @@ count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   if (p >= n_prob) return;
   const int lane = threadIdx.x & 31;
   const Problem q =
-      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, hap_len, p);
+      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, pos, hap_len, p);
   long long n = 0;
   if (q.len_x >= kK && q.len_y >= kK) {
     const int n_i = q.len_x - kK + 1, n_j = q.len_y - kK + 1;
     for (int i0 = 0; i0 < n_i; i0 += 32) {
-      const unsigned long long kx =
-          i0 + lane < n_i ? kmer_key(q.x + i0 + lane) : kNoKey;
-      const int nt = min(32, n_i - i0);
-      for (int jb = 0; jb < n_j; jb += 32) {
-        const unsigned long long hk =
-            jb + lane < n_j ? __ldg(q.keys + jb + lane) : kNoKey;
-        int c = 0;
-        for (int t = 0; t < nt; ++t) {
-          c += hk == __shfl_sync(kFull, kx, t);
-        }
-        n += c;
-      }
+      int lo, hi;
+      lookup(q, i0 + lane, n_i, n_j, lo, hi);
+      n += hi - lo;
     }
   }
 #pragma unroll
@@ -173,16 +255,17 @@ count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   if (lane == 0) counts[p] = n;
 }
 
-// A ring slot: one of the last 64 matches (index b, -1 for none yet).
+// A ring slot: one of the last 64 matches (ring index b, -1 for none yet).
 struct Slot {
   int i, j, sc, b;
 };
 
-// Candidate key of predecessor s for match a = (i, j): score x 64 + (63 -
-// distance), so the greatest key is the greatest score and, among equal
-// scores, the nearest predecessor; 0 when s is skipped or does not beat
-// the start score.
-__device__ __forceinline__ int candidate(const Slot& s, int a, int i, int j) {
+// Candidate key of predecessor s for match a = (i, j) (a, s.b ring
+// indices): score x 64 + (63 - distance), so the greatest key is the
+// greatest score and, among equal scores, the nearest predecessor; 0 when
+// s is skipped or does not beat the start score.
+template <typename Key = int>
+__device__ __forceinline__ Key candidate(const Slot& s, int a, int i, int j) {
   if (s.b < 0 || s.i >= i || s.j >= j) return 0;
   const int di = i - s.i, dj = j - s.j;
   const int gap = abs(di - dj);
@@ -190,14 +273,28 @@ __device__ __forceinline__ int candidate(const Slot& s, int a, int i, int j) {
   const int overlap = max(0, kK - min(di, dj));
   const int sc = s.sc + (kK - overlap) * kMatch - pen;
   if (sc <= kK * kMatch) return 0;
-  return sc * kMaxPred + (kMaxPred - 1 - (a - 1 - s.b));
+  return static_cast<Key>(sc) * kMaxPred + (kMaxPred - 1 - (a - 1 - s.b));
 }
 
+__device__ __forceinline__ int warp_max(int key) {
+  return __reduce_max_sync(kFull, key);
+}
+
+__device__ __forceinline__ long long warp_max(long long key) {
+  const int hi = __reduce_max_sync(kFull, static_cast<int>(key >> 32));
+  const unsigned lo = __reduce_max_sync(
+      kFull, static_cast<int>(key >> 32) == hi ? static_cast<unsigned>(key)
+                                               : 0u);
+  return (static_cast<long long>(hi) << 32) | lo;
+}
+
+template <typename Key>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              const int32_t* __restrict__ idx_ref,
              const int32_t* __restrict__ idx_alt,
              const unsigned long long* __restrict__ keys,
+             const int32_t* __restrict__ pos,
              const int32_t* __restrict__ hap_len,
              const long long* __restrict__ ends, size_t p0, size_t p1,
              int32_t* match_i, int32_t* match_j, int32_t* match_prev,
@@ -208,7 +305,7 @@ chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   if (p >= p1) return;
   const int lane = threadIdx.x & 31;
   const Problem q =
-      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, hap_len, p);
+      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, pos, hap_len, p);
   const int len_x = q.len_x, len_y = q.len_y;
   const long long start = p ? ends[p - 1] : 0;
   const long long count = ends[p] - start;
@@ -225,47 +322,49 @@ chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   int32_t* mi = match_i + off;
   int32_t* mj = match_j + off;
   int32_t* mp = match_prev + off;
-  // chain DP, match by match in (i, j) order
-  Slot s0{0, 0, 0, -1}, s1{0, 0, 0, -1};  // matches a - 1 - lane (mod 64)
-  int best_sc = -1, best_a = 0, a = 0;
+  // chain DP, match by match in (i, j) order; a: the match's index in the
+  // problem, ar: its ring index
+  Slot s0{0, 0, 0, -1}, s1{0, 0, 0, -1};  // matches ar - 1 - lane (mod 64)
+  int best_sc = -1, ar = 0;
+  long long best_a = 0, a = 0;
   const int n_i = len_x - kK + 1, n_j = len_y - kK + 1;
   for (int i0 = 0; i0 < n_i; i0 += 32) {
-    const unsigned long long kx_lane =
-        i0 + lane < n_i ? kmer_key(q.x + i0 + lane) : kNoKey;
+    int run_lo, run_hi;
+    lookup(q, i0 + lane, n_i, n_j, run_lo, run_hi);
     const int nt = min(32, n_i - i0);
     for (int t = 0; t < nt; ++t) {
       const int i = i0 + t;
-      const unsigned long long kx = __shfl_sync(kFull, kx_lane, t);
-      for (int jb = 0; jb < n_j; jb += 32) {
-        const unsigned long long hk =
-            jb + lane < n_j ? __ldg(q.keys + jb + lane) : kNoKey;
-        unsigned m = __ballot_sync(kFull, hk == kx);
-        while (m) {
-          const int j = jb + __ffs(m) - 1;
-          m &= m - 1;
-          int key = max(candidate(s0, a, i, j), candidate(s1, a, i, j));
-          key = __reduce_max_sync(kFull, key);
-          const int sc = key ? key / kMaxPred : kK * kMatch;
-          const int prev = key ? a - kMaxPred + key % kMaxPred : -1;
-          if (lane == 0) {
-            mi[a] = i;
-            mj[a] = j;
-            mp[a] = prev;
-          }
-          if (sc > best_sc) {
-            best_sc = sc;
-            best_a = a;
-          }
-          if (lane == (a & 31)) {
-            const Slot s{i, j, sc, a};
-            if (a & 32) {
-              s1 = s;
-            } else {
-              s0 = s;
-            }
-          }
-          ++a;
+      const int e1 = __shfl_sync(kFull, run_hi, t);
+      for (int e = __shfl_sync(kFull, run_lo, t); e < e1; ++e) {
+        const int j = __ldg(q.pos + e);
+        if (ar == kRebase + kMaxPred) {  // every slot holds b >= kRebase
+          ar -= kRebase;
+          s0.b -= kRebase;
+          s1.b -= kRebase;
         }
+        Key key = max(candidate<Key>(s0, ar, i, j),
+                      candidate<Key>(s1, ar, i, j));
+        key = warp_max(key);
+        const int sc = key ? static_cast<int>(key / kMaxPred) : kK * kMatch;
+        if (lane == 0) {
+          mi[a] = i;
+          mj[a] = j;
+          mp[a] = key ? kMaxPred - static_cast<int>(key % kMaxPred) : 0;
+        }
+        if (sc > best_sc) {
+          best_sc = sc;
+          best_a = a;
+        }
+        if (lane == (ar & 31)) {
+          const Slot s{i, j, sc, ar};
+          if (ar & 32) {
+            s1 = s;
+          } else {
+            s0 = s;
+          }
+        }
+        ++a;
+        ++ar;
       }
     }
   }
@@ -299,8 +398,9 @@ chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   };
   const int back_i = mi[best_a], back_j = mj[best_a];
   int front_i = back_i, front_j = back_j;
-  for (int c = best_a; c != -1;) {
-    const int ci = mi[c], cj = mj[c], b = mp[c];
+  for (long long c = best_a; c != -1;) {
+    const int ci = mi[c], cj = mj[c], d = mp[c];
+    const long long b = d ? c - d : -1;
     add_diag(ci, cj, kK);
     if (b != -1) add_box(mi[b], ci + kK, mj[b], cj + kK);
     front_i = ci;
@@ -331,29 +431,43 @@ unsigned warp_blocks(size_t n) {
 
 extern "C" {
 
-// First half of a band build on `stream`: the haplotypes' true lengths and
-// 6-mer keys, then each problem's match count. reads: uint8 [n_reads, lx];
-// haps: uint8 [n_haps, ly]; idx_ref, idx_alt: int32 [n_reads]; keys:
-// uint64 [n_haps, ly]; hap_len: int32 [n_haps]; counts: int64
-// [2 * n_reads]. Returns cudaGetLastError() (0 = ok).
-int band_build_count(const void* reads, int n_reads, int lx, const void* haps,
-                     int n_haps, int ly, const void* idx_ref,
-                     const void* idx_alt, void* keys, void* hap_len,
+// The k-mer index of a haplotype matrix on `stream`. haps: uint8 [n_haps,
+// ly] (pad 1); keys: uint64 and pos: int32 [n_haps, ly], of which row h's
+// first hap_len[h] - 5 entries are written (its 6-mer keys and positions,
+// sorted by (key, j)); tmp_keys, tmp_pos: scratch of the same shapes;
+// hap_len: int32 [n_haps]. Returns cudaGetLastError() (0 = ok).
+int band_index_build(const void* haps, int n_haps, int ly, void* keys,
+                     void* pos, void* tmp_keys, void* tmp_pos, void* hap_len,
+                     void* stream) {
+  if (n_haps > 0 && ly > 0) {
+    index_kernel<<<n_haps, kIndexThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(haps), ly,
+        static_cast<unsigned long long*>(keys), static_cast<int32_t*>(pos),
+        static_cast<unsigned long long*>(tmp_keys),
+        static_cast<int32_t*>(tmp_pos), static_cast<int32_t*>(hap_len));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// First half of a band build on `stream`: each problem's match count, from
+// the index of band_index_build. reads: uint8 [n_reads, lx]; idx_ref,
+// idx_alt: int32 [n_reads]; keys, pos: [*, ly] and hap_len: int32 [*], the
+// index; counts: int64 [2 * n_reads]. Returns cudaGetLastError() (0 = ok).
+int band_build_count(const void* reads, int n_reads, int lx, int ly,
+                     const void* idx_ref, const void* idx_alt,
+                     const void* keys, const void* pos, const void* hap_len,
                      void* counts, void* stream) {
   const size_t n_prob = 2 * static_cast<size_t>(n_reads);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto* k = static_cast<unsigned long long*>(keys);
-  auto* hl = static_cast<int32_t*>(hap_len);
-  if (n_haps > 0) {
-    hap_keys_kernel<<<warp_blocks(n_haps), kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(haps), n_haps, ly, k, hl);
-  }
   if (n_prob > 0) {
-    count_kernel<<<warp_blocks(n_prob), kThreads, 0, st>>>(
+    count_kernel<<<warp_blocks(n_prob), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(reads), n_prob, lx, ly,
         static_cast<const int32_t*>(idx_ref),
-        static_cast<const int32_t*>(idx_alt), k, hl,
-        static_cast<long long*>(counts));
+        static_cast<const int32_t*>(idx_alt),
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const int32_t*>(pos),
+        static_cast<const int32_t*>(hap_len), static_cast<long long*>(counts));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,31 +477,40 @@ int band_build_count(const void* reads, int n_reads, int lx, const void* haps,
 // match_i, match_j, match_prev: int32 [ends[p1 - 1] - ends[p0 - 1]] each
 // (ends[-1] = 0), the range's matches; work_lo, work_hi: int32 [p1 - p0,
 // lx]; jlo, jhi: int32 [lx, 2 * n_reads], problem 2r read r against
-// idx_ref[r], 2r + 1 against idx_alt[r]. Returns cudaGetLastError() (0 =
-// ok).
+// idx_ref[r], 2r + 1 against idx_alt[r]. wide_keys: 64-bit chain keys
+// (needed from lx >= 2^25). Returns cudaGetLastError() (0 = ok).
 int band_build_chain(const void* reads, int n_reads, int lx, int ly,
                      const void* idx_ref, const void* idx_alt,
-                     const void* keys, const void* hap_len, const void* ends,
-                     long long p0, long long p1, void* match_i,
-                     void* match_j, void* match_prev, void* work_lo,
-                     void* work_hi, void* jlo, void* jhi, void* stream) {
+                     const void* keys, const void* pos, const void* hap_len,
+                     const void* ends, long long p0, long long p1,
+                     void* match_i, void* match_j, void* match_prev,
+                     void* work_lo, void* work_hi, void* jlo, void* jhi,
+                     int wide_keys, void* stream) {
   const size_t n_prob = 2 * static_cast<size_t>(n_reads);
   if (p0 < 0 || p1 > static_cast<long long>(n_prob)) {
     return cudaErrorInvalidValue;
   }
   if (p0 >= p1) return 0;
-  chain_kernel<<<warp_blocks(p1 - p0), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(reads), n_prob, lx, ly,
-      static_cast<const int32_t*>(idx_ref),
-      static_cast<const int32_t*>(idx_alt),
-      static_cast<const unsigned long long*>(keys),
-      static_cast<const int32_t*>(hap_len),
-      static_cast<const long long*>(ends), p0, p1,
-      static_cast<int32_t*>(match_i),
-      static_cast<int32_t*>(match_j), static_cast<int32_t*>(match_prev),
-      static_cast<int32_t*>(work_lo), static_cast<int32_t*>(work_hi),
-      static_cast<int32_t*>(jlo), static_cast<int32_t*>(jhi));
+  auto launch = [&](auto kernel) {
+    kernel<<<warp_blocks(p1 - p0), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(reads), n_prob, lx, ly,
+        static_cast<const int32_t*>(idx_ref),
+        static_cast<const int32_t*>(idx_alt),
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const int32_t*>(pos),
+        static_cast<const int32_t*>(hap_len),
+        static_cast<const long long*>(ends), p0, p1,
+        static_cast<int32_t*>(match_i), static_cast<int32_t*>(match_j),
+        static_cast<int32_t*>(match_prev), static_cast<int32_t*>(work_lo),
+        static_cast<int32_t*>(work_hi), static_cast<int32_t*>(jlo),
+        static_cast<int32_t*>(jhi));
+  };
+  if (wide_keys) {
+    launch(chain_kernel<long long>);
+  } else {
+    launch(chain_kernel<int>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,8 +23,11 @@
 // cells and measured slower at the main shape), holding the strip's read
 // bases, per-row H and E, and the rows' bounds in registers; the bottom
 // row's (H, F + 6) of each column goes to the next strip through global
-// scratch, one 32-bit word (0 <= H, F + 6 < 65536 while min(lx, ly) <
-// 65536; the wrapper refuses more). The
+// scratch, one 32-bit word of two 16-bit halves while min(lx, ly) < 65536
+// (0 <= H, F + 6 <= min(lx, ly)) and past that a 64-bit one (the kWide
+// instantiation, picked by the wrapper from (lx, ly)). The wrapper bounds
+// the scratch (2 ly words per problem) with a budget and launches over
+// ranges of reads that fit it. The
 // K4 layout (128 lanes per diagonal, the reversed y buffer) hid the TPU's
 // wavefront ramp and is not carried over.
 //
@@ -78,27 +81,44 @@ constexpr int kNeg = -6;            // "no gap": any value <= -5 is exact
 constexpr int kThreads = 128;
 constexpr int kStrip = 8;           // read rows per strip
 
+// The scratch word of the bottom row's (H, F + 6): two 16-bit halves, or
+// with kWide two 32-bit halves.
+template <bool kWide>
+struct Word {
+  using T = uint32_t;
+  static constexpr int kShift = 16;
+};
+template <>
+struct Word<true> {
+  using T = unsigned long long;
+  static constexpr int kShift = 32;
+};
+
 // Columns [j0, j1) of one strip. kMasked: each cell is tested against its
 // row's band and set to (H, F) = (0, NEG) outside it; else every cell is
 // computed as in sw_pair.cu. E needs no select: left of a row's band every
 // H of the row is 0, so E stays at NEG (-6) there; right of it E is wrong
 // but feeds only the row's cells further right, all out of band.
-template <bool kMasked>
+template <bool kMasked, bool kWide>
 __device__ __forceinline__ void sweep(
     int j0, int j1, const int (&lo)[kStrip], const int (&hi)[kStrip],
     const int (&xs)[kStrip], int (&hl)[kStrip], int (&e)[kStrip],
     int& h_up_prev,
     int& best, const uint8_t* __restrict__ hrow,
-    const uint32_t* __restrict__ col_in, uint32_t* __restrict__ col_out,
+    const typename Word<kWide>::T* __restrict__ col_in,
+    typename Word<kWide>::T* __restrict__ col_out,
     size_t stride, int pv_lo, int pv_hi, int c0, bool last) {
+  using W = typename Word<kWide>::T;
+  constexpr int kShift = Word<kWide>::kShift;
+  constexpr W kMask = (W(1) << kShift) - 1;
   // running offsets of column j in the two buffers (one add per column)
   const ptrdiff_t step = static_cast<ptrdiff_t>(stride);
   ptrdiff_t in = (j0 - pv_lo) * step, out = (j0 - c0) * step;
   for (int j = j0; j < j1; ++j, in += step, out += step) {
     const int yj = __ldg(hrow + j);
-    const uint32_t w = j >= pv_lo && j < pv_hi ? col_in[in] : 0u;
-    int h = static_cast<int>(w & 0xffffu);           // H[i0-1][j]
-    int f = static_cast<int>(w >> 16) + kGapOpenExtend;  // F[i0-1][j]
+    const W w = j >= pv_lo && j < pv_hi ? col_in[in] : W(0);
+    int h = static_cast<int>(w & kMask);                     // H[i0-1][j]
+    int f = static_cast<int>(w >> kShift) + kGapOpenExtend;  // F[i0-1][j]
     int diag = h_up_prev;
     h_up_prev = h;
 #pragma unroll
@@ -118,21 +138,25 @@ __device__ __forceinline__ void sweep(
       best = max(best, h);
     }
     if (!last) {
-      col_out[out] = (static_cast<uint32_t>(f - kGapOpenExtend) << 16) |
-                     static_cast<uint32_t>(h);
+      col_out[out] = (static_cast<W>(f - kGapOpenExtend) << kShift) |
+                     static_cast<W>(h);
     }
   }
 }
 
 // Best banded local score of one read (row, lx bytes) against one
 // haplotype (hrow, ly bytes). lo, hi: this problem's bounds of row 0, rows
-// `stride` apart; col: its scratch column, offsets `stride` apart, two
-// buffers of ly offsets each.
+// `bound_stride` apart; col: its scratch column, offsets `stride` apart,
+// two buffers of ly offsets each.
+template <bool kWide>
 __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
                                  const uint8_t* __restrict__ hrow, int ly,
                                  const int32_t* __restrict__ lo_ptr,
                                  const int32_t* __restrict__ hi_ptr,
-                                 uint32_t* __restrict__ col, size_t stride) {
+                                 size_t bound_stride,
+                                 typename Word<kWide>::T* __restrict__ col,
+                                 size_t stride) {
+  using W = typename Word<kWide>::T;
   int len_x = lx;
   while (len_x > 0 && __ldg(row + len_x - 1) == 0) --len_x;
   int best = 0;
@@ -147,8 +171,8 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
       lo[r] = 0;
       hi[r] = 0;
       if (i < lx) {
-        lo[r] = __ldg(lo_ptr + i * stride);
-        hi[r] = __ldg(hi_ptr + i * stride);
+        lo[r] = __ldg(lo_ptr + i * bound_stride);
+        hi[r] = __ldg(hi_ptr + i * bound_stride);
       }
       if (lo[r] < hi[r]) {
         c0 = min(c0, lo[r]);
@@ -176,37 +200,40 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
       e[r] = kNeg;
     }
     const bool last = s == n_strips - 1;
-    const uint32_t* col_in = col + ((s + 1) & 1) * ly * stride;
-    uint32_t* col_out = col + (s & 1) * ly * stride;
+    const W* col_in = col + ((s + 1) & 1) * ly * stride;
+    W* col_out = col + (s & 1) * ly * stride;
     int h_up_prev = 0;  // H[i0-1][c0-1]
     if (c0 > 0 && c0 - 1 >= pv_lo && c0 - 1 < pv_hi) {
       h_up_prev = static_cast<int>(col_in[(c0 - 1 - pv_lo) * stride] &
-                                   0xffffu);
+                                   ((W(1) << Word<kWide>::kShift) - 1));
     }
-    sweep<true>(c0, a, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
-                col_out, stride, pv_lo, pv_hi, c0, last);
-    sweep<false>(a, b, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
-                 col_out, stride, pv_lo, pv_hi, c0, last);
-    sweep<true>(b, c1, lo, hi, xs, hl, e, h_up_prev, best, hrow, col_in,
-                col_out, stride, pv_lo, pv_hi, c0, last);
+    sweep<true, kWide>(c0, a, lo, hi, xs, hl, e, h_up_prev, best, hrow,
+                       col_in, col_out, stride, pv_lo, pv_hi, c0, last);
+    sweep<false, kWide>(a, b, lo, hi, xs, hl, e, h_up_prev, best, hrow,
+                        col_in, col_out, stride, pv_lo, pv_hi, c0, last);
+    sweep<true, kWide>(b, c1, lo, hi, xs, hl, e, h_up_prev, best, hrow,
+                       col_in, col_out, stride, pv_lo, pv_hi, c0, last);
     pv_lo = c0;
     pv_hi = c1;
   }
   return best;
 }
 
-// Problem p scores read p/2 against idx_ref (p even) or idx_alt (p odd).
-// kCodes: one int8 call code per read, else int32 scores [2][n_reads].
-template <bool kCodes>
+// Problem p scores read p/2 against idx_ref (p even) or idx_alt (p odd);
+// its bounds are column p of jlo/jhi, rows bound_stride apart.
+// kCodes: one int8 call code per read, else int32 scores
+// [2][score_stride] (columns [0, n_reads) written).
+template <bool kCodes, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
                  const uint8_t* __restrict__ haps, int ly,
                  const int32_t* __restrict__ idx_ref,
                  const int32_t* __restrict__ idx_alt,
                  const int32_t* __restrict__ jlo,
-                 const int32_t* __restrict__ jhi,
-                 int32_t* __restrict__ scores, int8_t* __restrict__ codes,
-                 uint32_t* __restrict__ scratch) {
+                 const int32_t* __restrict__ jhi, size_t bound_stride,
+                 int32_t* __restrict__ scores, int score_stride,
+                 int8_t* __restrict__ codes,
+                 typename Word<kWide>::T* __restrict__ scratch) {
   const size_t n_prob = 2 * static_cast<size_t>(n_reads);
   const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = p < n_prob;
@@ -215,9 +242,10 @@ sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
   int best = 0;
   if (live) {
     const int hidx = __ldg((which ? idx_alt : idx_ref) + read);
-    best = sw_banded_problem(reads + static_cast<size_t>(read) * lx, lx,
-                             haps + static_cast<size_t>(hidx) * ly, ly,
-                             jlo + p, jhi + p, scratch + p, n_prob);
+    best = sw_banded_problem<kWide>(
+        reads + static_cast<size_t>(read) * lx, lx,
+        haps + static_cast<size_t>(hidx) * ly, ly, jlo + p, jhi + p,
+        bound_stride, scratch + p, n_prob);
   }
   if (kCodes) {
     // the pair (ref, alt) of one read sits in adjacent lanes of one warp
@@ -229,49 +257,53 @@ sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
       codes[read] = code;
     }
   } else if (live) {
-    scores[static_cast<size_t>(which) * n_reads + read] = best;
+    scores[static_cast<size_t>(which) * score_stride + read] = best;
   }
+}
+
+template <bool kCodes, bool kWide>
+void launch(unsigned blocks, cudaStream_t stream, const uint8_t* reads,
+            int n_reads, int lx, const uint8_t* haps, int ly,
+            const int32_t* idx_ref, const int32_t* idx_alt,
+            const int32_t* jlo, const int32_t* jhi, size_t bound_stride,
+            int32_t* scores, int score_stride, int8_t* codes,
+            void* scratch) {
+  sw_banded_kernel<kCodes, kWide><<<blocks, kThreads, 0, stream>>>(
+      reads, n_reads, lx, haps, ly, idx_ref, idx_alt, jlo, jhi, bound_stride,
+      scores, score_stride, codes,
+      static_cast<typename Word<kWide>::T*>(scratch));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the scratch buffer a launch needs per problem (0: none).
-int sw_banded_scratch_rows(int lx, int ly) {
-  return lx > kStrip ? 2 * ly : 0;
-}
-
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; jlo, jhi: int32
-// [lx, 2 * n_reads]. Exactly one of scores (int32 [2, n_reads]) and codes
-// (int8 [n_reads]) is non-null. scratch: uint32
-// [sw_banded_scratch_rows(lx, ly), 2 * n_reads].
+// reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; jlo, jhi: int32 [lx,
+// bound_stride], problem p's bounds in column p (p < 2 n_reads). Exactly
+// one of scores (int32 [2, score_stride], columns [0, n_reads) written)
+// and codes (int8 [n_reads]) is non-null. scratch: [2 ly, 2 n_reads]
+// words, uint32 or, with wide, uint64; none needed when lx <= 8 (one
+// strip). wide is needed from min(lx, ly) >= 65536.
 int sw_banded_launch(const void* reads, int n_reads, int lx, const void* haps,
                      int ly, const void* idx_ref, const void* idx_alt,
-                     const void* jlo, const void* jhi, void* scores,
-                     void* codes, void* scratch, void* stream) {
+                     const void* jlo, const void* jhi, long long bound_stride,
+                     void* scores, int score_stride, void* codes,
+                     void* scratch, int wide, void* stream) {
   const size_t n_prob = 2 * static_cast<size_t>(n_reads);
   if (n_prob == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((n_prob + kThreads - 1) / kThreads);
-  auto* r = static_cast<const uint8_t*>(reads);
-  auto* h = static_cast<const uint8_t*>(haps);
-  auto* ir = static_cast<const int32_t*>(idx_ref);
-  auto* ia = static_cast<const int32_t*>(idx_alt);
-  auto* lo = static_cast<const int32_t*>(jlo);
-  auto* hi = static_cast<const int32_t*>(jhi);
-  auto* sc = static_cast<int32_t*>(scores);
-  auto* cd = static_cast<int8_t*>(codes);
-  auto* scr = static_cast<uint32_t*>(scratch);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (cd) {
-    sw_banded_kernel<true><<<blocks, kThreads, 0, st>>>(
-        r, n_reads, lx, h, ly, ir, ia, lo, hi, sc, cd, scr);
-  } else {
-    sw_banded_kernel<false><<<blocks, kThreads, 0, st>>>(
-        r, n_reads, lx, h, ly, ir, ia, lo, hi, sc, cd, scr);
-  }
+  auto* go = codes ? (wide ? &launch<true, true> : &launch<true, false>)
+                   : (wide ? &launch<false, true> : &launch<false, false>);
+  go(blocks, static_cast<cudaStream_t>(stream),
+     static_cast<const uint8_t*>(reads), n_reads, lx,
+     static_cast<const uint8_t*>(haps), ly,
+     static_cast<const int32_t*>(idx_ref),
+     static_cast<const int32_t*>(idx_alt), static_cast<const int32_t*>(jlo),
+     static_cast<const int32_t*>(jhi), static_cast<size_t>(bound_stride),
+     static_cast<int32_t*>(scores), score_stride,
+     static_cast<int8_t*>(codes), scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

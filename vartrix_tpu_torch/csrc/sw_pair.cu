@@ -28,10 +28,13 @@
 // registers; F chains down the strip's column. Between strips the bottom
 // row's (H, F) of every column goes through a global scratch buffer laid
 // out [column][problem], so neighbouring threads touch neighbouring words.
-// Once computed, 0 <= H <= min(len_x, len_y) < 65536 and -6 <= F <= that
-// bound - 6 (F is an H above minus 6, or an F above minus 1), so H and F + 6
-// both fit 16 unsigned bits and the pair packs into one 32-bit word (H low
-// half, F + 6 high half). The wrapper refuses min(lx, ly) >= 65536.
+// Once computed, 0 <= H <= min(len_x, len_y) and -6 <= F <= that bound - 6
+// (F is an H above minus 6, or an F above minus 1), so H and F + 6 pack
+// into one scratch word, H in the low half and F + 6 in the high half: a
+// 32-bit word while min(lx, ly) < 65536, and past that a 64-bit one (the
+// kWide instantiation, the same kernel with a wider word; the wrapper
+// picks it from (lx, ly)). The wrapper bounds the scratch (ly words per
+// problem) with a budget and launches over ranges of reads that fit it.
 //
 // Bound. The work is integer instructions. Integer adds and moves can run
 // on the FMA pipe as well as on the 64-lane INT32 pipe, so the int32 rate
@@ -79,13 +82,36 @@ __device__ __forceinline__ int read_base(const uint8_t* __restrict__ row,
   return __ldg(row + i);
 }
 
+// The scratch word of the bottom row's (H, F + 6): two 16-bit halves, or
+// with kWide two 32-bit halves.
+template <bool kWide>
+struct Word {
+  using T = uint32_t;
+  static constexpr int kShift = 16;
+};
+template <>
+struct Word<true> {
+  using T = unsigned long long;
+  static constexpr int kShift = 32;
+};
+
+// Scratch words the kWide instantiation loads ahead of the column that
+// uses them. A problem that needs the wide word runs so long (4.6 G cells
+// at 65,536 x 70,000) that its warp is often alone on its scheduler, where
+// nothing else hides the L2 round trip of each column's word.
+constexpr int kAhead = 4;
+
 // Best local score of one read (row, len_x bases) against one haplotype
 // (hrow, len_y bases). col: this problem's scratch column, stride between
 // haplotype positions.
-template <bool kPacked2>
+template <bool kPacked2, bool kWide>
 __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
                           const uint8_t* __restrict__ hrow, int len_y,
-                          uint32_t* __restrict__ col, size_t stride) {
+                          typename Word<kWide>::T* __restrict__ col,
+                          size_t stride) {
+  using W = typename Word<kWide>::T;
+  constexpr int kShift = Word<kWide>::kShift;
+  constexpr W kMask = (W(1) << kShift) - 1;
   int best = 0;
   const int n_strips = (len_x + kStrip - 1) / kStrip;
   for (int s = 0; s < n_strips; ++s) {
@@ -99,13 +125,29 @@ __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
     const bool first = s == 0;
     const bool last = s == n_strips - 1;
     int h_up_prev = 0;  // H[i0-1][j-1]
+    W ahead[kWide ? kAhead : 1];  // kWide: the words of columns j, j + 1, ..
+    if (kWide && !first) {
+#pragma unroll
+      for (int d = 0; d < kAhead; ++d) {
+        ahead[d] = d < len_y ? col[d * stride] : W(0);
+      }
+    }
     for (int j = 0; j < len_y; ++j) {
       const int yj = __ldg(hrow + j);
       int h = 0, f = kNeg;  // H[i0-1][j], F[i0-1][j]
       if (!first) {
-        const uint32_t w = col[j * stride];
-        h = static_cast<int>(w & 0xffffu);
-        f = static_cast<int>(w >> 16) + kGapOpenExtend;
+        W w;
+        if constexpr (kWide) {
+          w = ahead[0];
+#pragma unroll
+          for (int d = 0; d + 1 < kAhead; ++d) ahead[d] = ahead[d + 1];
+          ahead[kAhead - 1] =
+              j + kAhead < len_y ? col[(j + kAhead) * stride] : W(0);
+        } else {
+          w = col[j * stride];
+        }
+        h = static_cast<int>(w & kMask);
+        f = static_cast<int>(w >> kShift) + kGapOpenExtend;
       }
       int diag = h_up_prev;
       h_up_prev = h;
@@ -120,8 +162,8 @@ __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
         best = max(best, h);
       }
       if (!last) {
-        col[j * stride] = (static_cast<uint32_t>(f - kGapOpenExtend) << 16) |
-                          static_cast<uint32_t>(h);
+        col[j * stride] = (static_cast<W>(f - kGapOpenExtend) << kShift) |
+                          static_cast<W>(h);
       }
     }
   }
@@ -131,16 +173,17 @@ __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
 // per_read == 2: problem p scores read p/2 against idx_ref (p even) or
 // idx_alt (p odd); per_read == 1: read p against idx_ref[p].
 // kCodes (per_read == 2 only): one int8 call code per read, else int32
-// scores [per_read][n_reads].
-template <bool kPacked2, bool kCodes>
+// scores [per_read][score_stride] (columns [0, n_reads) written).
+template <bool kPacked2, bool kCodes, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sw_pair_kernel(const uint8_t* __restrict__ reads,
                const int32_t* __restrict__ read_lens, int n_reads, int lx,
                int row_bytes, const uint8_t* __restrict__ haps, int ly,
                const int32_t* __restrict__ idx_ref,
                const int32_t* __restrict__ idx_alt, int per_read,
-               int32_t* __restrict__ scores, int8_t* __restrict__ codes,
-               uint32_t* __restrict__ scratch) {
+               int32_t* __restrict__ scores, int score_stride,
+               int8_t* __restrict__ codes,
+               typename Word<kWide>::T* __restrict__ scratch) {
   const size_t n_prob = static_cast<size_t>(n_reads) * per_read;
   const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = p < n_prob;
@@ -161,8 +204,8 @@ sw_pair_kernel(const uint8_t* __restrict__ reads,
     int len_y = ly;
     while (len_y > 0 && __ldg(hrow + len_y - 1) == 1) --len_y;
     if (len_x > 0 && len_y > 0) {
-      best = sw_problem<kPacked2>(row, len_x, hrow, len_y, scratch + p,
-                                  n_prob);
+      best = sw_problem<kPacked2, kWide>(row, len_x, hrow, len_y,
+                                         scratch + p, n_prob);
     }
   }
   if (kCodes) {
@@ -175,65 +218,68 @@ sw_pair_kernel(const uint8_t* __restrict__ reads,
       codes[read] = code;
     }
   } else if (live) {
-    scores[static_cast<size_t>(which) * n_reads + read] = best;
+    scores[static_cast<size_t>(which) * score_stride + read] = best;
   }
 }
 
-template <bool kPacked2, bool kCodes>
+template <bool kPacked2, bool kCodes, bool kWide>
 void launch(unsigned blocks, cudaStream_t stream, const uint8_t* reads,
             const int32_t* read_lens, int n_reads, int lx, int row_bytes,
             const uint8_t* haps, int ly, const int32_t* idx_ref,
             const int32_t* idx_alt, int per_read, int32_t* scores,
-            int8_t* codes, uint32_t* scratch) {
-  sw_pair_kernel<kPacked2, kCodes><<<blocks, kThreads, 0, stream>>>(
+            int score_stride, int8_t* codes, void* scratch) {
+  sw_pair_kernel<kPacked2, kCodes, kWide><<<blocks, kThreads, 0, stream>>>(
       reads, read_lens, n_reads, lx, row_bytes, haps, ly, idx_ref, idx_alt,
-      per_read, scores, codes, scratch);
+      per_read, scores, score_stride, codes,
+      static_cast<typename Word<kWide>::T*>(scratch));
+}
+
+template <bool kWide>
+void launch_any(bool packed2, bool codes, unsigned blocks,
+                cudaStream_t stream, const uint8_t* reads,
+                const int32_t* read_lens, int n_reads, int lx, int row_bytes,
+                const uint8_t* haps, int ly, const int32_t* idx_ref,
+                const int32_t* idx_alt, int per_read, int32_t* scores,
+                int score_stride, int8_t* codes_out, void* scratch) {
+  auto* go = packed2 ? (codes ? &launch<true, true, kWide>
+                              : &launch<true, false, kWide>)
+                     : (codes ? &launch<false, true, kWide>
+                              : &launch<false, false, kWide>);
+  go(blocks, stream, reads, read_lens, n_reads, lx, row_bytes, haps, ly,
+     idx_ref, idx_alt, per_read, scores, score_stride, codes_out, scratch);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the scratch buffer a launch needs per problem (0: none).
-int sw_pair_scratch_rows(int lx, int ly) { return lx > kStrip ? ly : 0; }
-
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
 // reads: uint8 [n_reads, lx] (packed2 = 0) or [n_reads, lx / 4] 2-bit codes
 // with int32 read_lens [n_reads] (packed2 = 1). haps: uint8 [*, ly].
-// Exactly one of scores (int32 [per_read, n_reads]) and codes (int8
-// [n_reads], per_read = 2) is non-null. scratch: uint32
-// [sw_pair_scratch_rows(lx, ly), n_reads * per_read].
+// Exactly one of scores (int32 [per_read, score_stride], columns [0,
+// n_reads) written) and codes (int8 [n_reads], per_read = 2) is non-null.
+// scratch: [ly, n_reads * per_read] words, uint32 or, with wide, uint64;
+// none needed when lx <= 16 (one strip). wide is needed from
+// min(lx, ly) >= 65536.
 int sw_pair_launch(const void* reads, const void* read_lens, int n_reads,
                    int lx, int packed2, const void* haps, int ly,
                    const void* idx_ref, const void* idx_alt, int per_read,
-                   void* scores, void* codes, void* scratch, void* stream) {
+                   void* scores, int score_stride, void* codes,
+                   void* scratch, int wide, void* stream) {
   const size_t n_prob = static_cast<size_t>(n_reads) * per_read;
   if (n_prob == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((n_prob + kThreads - 1) / kThreads);
   const int row_bytes = packed2 ? lx / 4 : lx;
-  auto* r = static_cast<const uint8_t*>(reads);
-  auto* rl = static_cast<const int32_t*>(read_lens);
-  auto* h = static_cast<const uint8_t*>(haps);
-  auto* ir = static_cast<const int32_t*>(idx_ref);
-  auto* ia = static_cast<const int32_t*>(idx_alt);
-  auto* sc = static_cast<int32_t*>(scores);
-  auto* cd = static_cast<int8_t*>(codes);
-  auto* scr = static_cast<uint32_t*>(scratch);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (packed2 && codes) {
-    launch<true, true>(blocks, st, r, rl, n_reads, lx, row_bytes, h, ly, ir,
-                       ia, per_read, sc, cd, scr);
-  } else if (packed2) {
-    launch<true, false>(blocks, st, r, rl, n_reads, lx, row_bytes, h, ly, ir,
-                        ia, per_read, sc, cd, scr);
-  } else if (codes) {
-    launch<false, true>(blocks, st, r, rl, n_reads, lx, row_bytes, h, ly, ir,
-                        ia, per_read, sc, cd, scr);
-  } else {
-    launch<false, false>(blocks, st, r, rl, n_reads, lx, row_bytes, h, ly, ir,
-                         ia, per_read, sc, cd, scr);
-  }
+  auto* go = wide ? &launch_any<true> : &launch_any<false>;
+  go(packed2 != 0, codes != nullptr, blocks,
+     static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(reads),
+     static_cast<const int32_t*>(read_lens), n_reads, lx, row_bytes,
+     static_cast<const uint8_t*>(haps), ly,
+     static_cast<const int32_t*>(idx_ref),
+     static_cast<const int32_t*>(idx_alt), per_read,
+     static_cast<int32_t*>(scores), score_stride,
+     static_cast<int8_t*>(codes), scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

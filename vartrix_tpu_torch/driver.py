@@ -242,12 +242,13 @@ def _main(argv: List[str]) -> None:
         read_idx, cells_l, umis_l = collect_reads_fast(
             cbam, works, cell_barcodes, pargs)
     launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
-                sw_cuda.BAND_LAUNCHES)
+                sw_cuda.BAND_LAUNCHES, sw_cuda.INDEX_LAUNCHES)
     with _phase("score"):
         per_variant_codes = score_all_fast(cbam, works, read_idx, backend)
     launches = {"sw_pair": sw_cuda.LAUNCHES - launches[0],
                 "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1],
-                "band_build": sw_cuda.BAND_LAUNCHES - launches[2]}
+                "band_build": sw_cuda.BAND_LAUNCHES - launches[2],
+                "band_index": sw_cuda.INDEX_LAUNCHES - launches[3]}
     log.debug("Finished aligning reads for all variants")
 
     metrics = Metrics()

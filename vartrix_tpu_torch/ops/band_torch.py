@@ -22,6 +22,10 @@ haplotype's last byte that is not 1):
     interval, clamped to [0, len_x) x [0, len_y); uncovered rows are
     empty.
 
+The kernel finds its matches in a per-haplotype k-mer index (band_index:
+each row's 6-mer keys sorted by (key, j), so the matches of one read
+6-mer are one run ascending in j); band_index below is that index's plain
+version. The plain band builder takes no index: it compares every pair.
 Here the match mask of a group of problems is one key-equality tensor,
 the chain DP a loop over match rank on [problems, 64] tensors, and the
 band fill a loop over path steps on [problems, lx] tensors. Runs on
@@ -35,7 +39,7 @@ workers) would spin against each other.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,6 +51,7 @@ MAX_PRED = 64  # matches before each match that the chain DP visits
 
 _INT32_MAX = (1 << 31) - 1
 _INT32_MIN = -(1 << 31)
+_INT64_MAX = (1 << 63) - 1
 # elements of one group's [problems, read k-mers, haplotype k-mers] mask:
 # fewer groups on a card, whose memory holds a larger mask
 _GROUP_CELLS = {"cpu": 1 << 25, "cuda": 1 << 30}
@@ -74,6 +79,35 @@ def kmer_keys(rows: torch.Tensor, lens: torch.Tensor,
         key |= r[:, t : t + m] << (8 * t)
     pos = torch.arange(m, device=rows.device)
     return torch.where(pos[None, :] + K <= lens[:, None], key, invalid)
+
+
+class BandIndex(NamedTuple):
+    """The band builder's k-mer index of a haplotype matrix [H, ly]: row h
+    holds its n = hap_len[h] - 5 6-mer keys (byte t at bit 8t) sorted by
+    (key, j) in keys[h, :n] and their positions j in pos[h, :n], so the
+    matches of one read 6-mer are one run of keys[h, :n], ascending in j.
+    Entries past n: int64 max and -1 here, unwritten by the kernel."""
+    keys: torch.Tensor     # int64 [H, ly]
+    pos: torch.Tensor      # int32 [H, ly]
+    hap_len: torch.Tensor  # int32 [H]
+
+
+def band_index(hap_mat: torch.Tensor) -> BandIndex:
+    """Plain version of the index kernel (csrc/band_build.cu index_kernel):
+    hap_mat uint8 [H, ly] (pad 1) -> BandIndex."""
+    H, ly = hap_mat.shape
+    dev = hap_mat.device
+    hap_len = true_lengths(hap_mat, 1)
+    keys = torch.full((H, ly), _INT64_MAX, dtype=torch.int64, device=dev)
+    pos = torch.full((H, ly), -1, dtype=torch.int32, device=dev)
+    m = max(ly - K + 1, 0)
+    if H and m:
+        sorted_keys, order = torch.sort(
+            kmer_keys(hap_mat, hap_len, _INT64_MAX), dim=1, stable=True)
+        keys[:, :m] = sorted_keys
+        pos[:, :m] = torch.where(sorted_keys != _INT64_MAX,
+                                 order.to(torch.int32), -1)
+    return BandIndex(keys, pos, hap_len.to(torch.int32))
 
 
 @contextmanager

@@ -7,7 +7,10 @@ The wrapper functions take tensors. CUDA tensors always go to a kernel;
 CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py,
 ops/band_torch.py), the only case in which it is taken. Each kernel is
 built with nvcc at first use and bound through ctypes; a failed build or
-launch raises.
+launch raises. The kernels take every (lx, ly): the DP kernels switch to
+a 64-bit scratch word from min(lx, ly) >= 65536 (wide_word), and every
+wrapper cuts a launch into ranges whose scratch fits a fixed budget
+(read_ranges, band_ranges) and writes them into one output.
 
 `SwBackend` is the duck-typed backend contract of the pipeline: calling it
 scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
@@ -15,9 +18,11 @@ scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
 read. It chunks each shape bucket into launches of CHUNK_READS reads,
 shipping reads as 2-bit codes while every read of the bucket is A/C/G/T
 and as dense bytes from the first chunk that is not. `BandedSwBackend`
-(--sw-mode banded) has the default route only: per chunk it ships dense
-reads and indices, builds both problems' band bounds on the device
-(band_bounds) and scores them there; no band stage runs on the host.
+(--sw-mode banded) has the default route only: per shape bucket it builds
+the haplotypes' k-mer index once on the device (band_index), then per
+chunk it ships dense reads and indices, builds both problems' band bounds
+on the device (band_bounds) and scores them there; no band stage runs on
+the host.
 """
 
 from __future__ import annotations
@@ -30,21 +35,35 @@ import torch
 
 from . import band_torch, sw_banded_torch, sw_torch
 from ._build import band_build_library, banded_kernel_library, kernel_library
+from .band_torch import BandIndex
 
 # 131,072 (read, haplotype) problems per launch
 CHUNK_READS = 65536
 
 # device bytes the band builder's chain pass may take for its match
 # scratch (12 bytes per match) and work rows (8 bytes per read row) per
-# launch; a chunk that needs more runs the pass over ranges of problems
+# launch, less the k-mer index it reads (12 bytes per haplotype position);
+# a chunk that needs more runs the pass over ranges of problems
 BAND_SCRATCH_BYTES = 1 << 30
+# device bytes the DP kernels' scratch (the (H, F + 6) words a strip hands
+# to the next) may take per launch; a chunk that needs more runs over
+# ranges of reads
+DP_SCRATCH_BYTES = 1 << 30
+# read rows per strip of csrc/sw_pair.cu and csrc/sw_banded.cu (kStrip):
+# a read within one strip needs no scratch
+PAIR_STRIP = 16
+BANDED_STRIP = 8
+# read width from which the band builder's chain keys (score x 64 +
+# nearness, a score at most the read's length) need 64 bits
+BAND_WIDE_KEYS_LX = 1 << 25
 
-# launches of each kernel (sw_pair, sw_banded, band_build) since the last
-# reset; the smoke check zeroes them before driving a path and reads them
-# after
+# kernel launches (sw_pair, sw_banded: one per read range; band_build: one
+# per chain-pass range; band_index: one per index) since the last reset;
+# the smoke check zeroes them before driving a path and reads them after
 LAUNCHES = 0
 BANDED_LAUNCHES = 0
 BAND_LAUNCHES = 0
+INDEX_LAUNCHES = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _banded_lib: Optional[ctypes.CDLL] = None
@@ -58,9 +77,7 @@ def _kernel() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sw_pair_launch.restype = ci
         lib.sw_pair_launch.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp, ci,
-                                       vp, vp, vp, vp]
-        lib.sw_pair_scratch_rows.restype = ci
-        lib.sw_pair_scratch_rows.argtypes = [ci, ci]
+                                       vp, ci, vp, vp, ci, vp]
         lib.sw_pair_error_string.restype = ctypes.c_char_p
         lib.sw_pair_error_string.argtypes = [ci]
         _lib = lib
@@ -71,12 +88,10 @@ def _banded_kernel() -> ctypes.CDLL:
     global _banded_lib
     if _banded_lib is None:
         lib = ctypes.CDLL(banded_kernel_library())
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sw_banded_launch.restype = ci
         lib.sw_banded_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp,
-                                         vp, vp, vp, vp]
-        lib.sw_banded_scratch_rows.restype = ci
-        lib.sw_banded_scratch_rows.argtypes = [ci, ci]
+                                         cl, vp, ci, vp, vp, ci, vp]
         lib.sw_banded_error_string.restype = ctypes.c_char_p
         lib.sw_banded_error_string.argtypes = [ci]
         _banded_lib = lib
@@ -88,13 +103,15 @@ def _band_kernel() -> ctypes.CDLL:
     if _band_lib is None:
         lib = ctypes.CDLL(band_build_library())
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.band_index_build.restype = ci
+        lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
         lib.band_build_count.restype = ci
-        lib.band_build_count.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp,
-                                         vp, vp, vp]
+        lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp,
+                                         vp, vp]
         lib.band_build_chain.restype = ci
         lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp,
-                                         cl, cl, vp, vp, vp, vp, vp, vp, vp,
-                                         vp]
+                                         vp, cl, cl, vp, vp, vp, vp, vp, vp,
+                                         vp, ci, vp]
         lib.band_build_error_string.restype = ctypes.c_char_p
         lib.band_build_error_string.argtypes = [ci]
         _band_lib = lib
@@ -112,11 +129,40 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_widths(lx: int, ly: int) -> None:
-    if min(lx, ly) >= 1 << 16:
-        raise ValueError(f"read and haplotype widths ({lx}, {ly}) both at or "
-                         "above 65536: scores would overflow the scratch "
-                         "word")
+def wide_word(lx: int, ly: int) -> bool:
+    """Whether the DP kernels need their 64-bit scratch word: H and F + 6
+    reach min(lx, ly), which the 32-bit word holds as 16-bit halves only
+    below 65536."""
+    return min(lx, ly) >= 1 << 16
+
+
+def dp_scratch_bytes(lx: int, ly: int, banded: bool = False) -> int:
+    """Scratch bytes of one (read, haplotype) problem of sw_pair (ly
+    words) or, banded, of sw_banded (2 ly words: two buffers alternate by
+    strip); none when the read fits one strip."""
+    if lx <= (BANDED_STRIP if banded else PAIR_STRIP):
+        return 0
+    return (2 if banded else 1) * ly * (8 if wide_word(lx, ly) else 4)
+
+
+def read_ranges(n_reads: int, lx: int, ly: int, per_read: int, budget: int,
+                banded: bool = False) -> List[Tuple[int, int]]:
+    """Read ranges [r0, r1) of one DP launch, in order and covering every
+    read, each taking at most `budget` bytes of scratch (per_read problems
+    per read, dp_scratch_bytes each) unless one read alone takes more."""
+    need = per_read * dp_scratch_bytes(lx, ly, banded)
+    step = max(1, budget // need) if need else max(1, n_reads)
+    return [(r0, min(r0 + step, n_reads)) for r0 in range(0, n_reads, step)]
+
+
+def _scratch(ranges: List[Tuple[int, int]], per_problem: int, per_read: int,
+             dev: torch.device) -> Optional[torch.Tensor]:
+    """One scratch buffer for the largest of `ranges` (the first), reused
+    by each launch in stream order; None when no problem needs any."""
+    if not per_problem:
+        return None
+    n = (ranges[0][1] - ranges[0][0]) * per_read * per_problem
+    return torch.empty(n, dtype=torch.uint8, device=dev)
 
 
 def _output(R: int, per_read: int, codes: bool, dev: torch.device):
@@ -149,24 +195,28 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             raise ValueError("read_lens must have one entry per read")
     if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
         raise ValueError("idx_ref and idx_alt must have one entry per read")
-    _check_widths(lx, ly)
     lib = _kernel()
     out, scores_ptr, codes_ptr = _output(R, per_read, codes, dev)
-    if R == 0:
+    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES)
+    if not ranges:
         return out
-    rows = lib.sw_pair_scratch_rows(lx, ly)
-    scratch = torch.empty((rows, R * per_read), dtype=torch.int32,
-                          device=dev)
+    scratch = _scratch(ranges, dp_scratch_bytes(lx, ly), per_read, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sw_pair_launch(
-        reads.data_ptr(), read_lens.data_ptr() if packed2 else None, R, lx,
-        int(packed2), hap_mat.data_ptr(), ly, idx_ref.data_ptr(),
-        idx_alt.data_ptr(), per_read, scores_ptr, codes_ptr,
-        scratch.data_ptr() if rows else None, stream)
-    if err != 0:
-        raise RuntimeError("sw_pair kernel launch failed: "
-                           + lib.sw_pair_error_string(err).decode())
-    LAUNCHES += 1
+    row_bytes = reads.shape[1]
+    for r0, r1 in ranges:
+        err = lib.sw_pair_launch(
+            reads.data_ptr() + r0 * row_bytes,
+            read_lens.data_ptr() + 4 * r0 if packed2 else None, r1 - r0, lx,
+            int(packed2), hap_mat.data_ptr(), ly, idx_ref.data_ptr() + 4 * r0,
+            idx_alt.data_ptr() + 4 * r0, per_read,
+            scores_ptr + 4 * r0 if scores_ptr else None, R,
+            codes_ptr + r0 if codes_ptr else None,
+            None if scratch is None else scratch.data_ptr(),
+            int(wide_word(lx, ly)), stream)
+        if err != 0:
+            raise RuntimeError("sw_pair kernel launch failed: "
+                               + lib.sw_pair_error_string(err).decode())
+        LAUNCHES += 1
     return out
 
 
@@ -227,22 +277,27 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
         raise ValueError(f"jlo and jhi must be [{lx}, {2 * R}] (one "
                          "column per problem), got "
                          f"{list(jlo.shape)} and {list(jhi.shape)}")
-    _check_widths(lx, ly)
     lib = _banded_kernel()
     out, scores_ptr, codes_ptr = _output(R, 2, codes, dev)
-    if R == 0:
+    ranges = read_ranges(R, lx, ly, 2, DP_SCRATCH_BYTES, banded=True)
+    if not ranges:
         return out
-    rows = lib.sw_banded_scratch_rows(lx, ly)
-    scratch = torch.empty((rows, 2 * R), dtype=torch.int32, device=dev)
+    scratch = _scratch(ranges, dp_scratch_bytes(lx, ly, True), 2, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sw_banded_launch(
-        reads.data_ptr(), R, lx, hap_mat.data_ptr(), ly, idx_ref.data_ptr(),
-        idx_alt.data_ptr(), jlo.data_ptr(), jhi.data_ptr(),
-        scores_ptr, codes_ptr, scratch.data_ptr() if rows else None, stream)
-    if err != 0:
-        raise RuntimeError("sw_banded kernel launch failed: "
-                           + lib.sw_banded_error_string(err).decode())
-    BANDED_LAUNCHES += 1
+    for r0, r1 in ranges:
+        # problems 2 r0 .. 2 r1 - 1: columns of the bounds, 4 bytes each
+        err = lib.sw_banded_launch(
+            reads.data_ptr() + r0 * lx, r1 - r0, lx, hap_mat.data_ptr(), ly,
+            idx_ref.data_ptr() + 4 * r0, idx_alt.data_ptr() + 4 * r0,
+            jlo.data_ptr() + 8 * r0, jhi.data_ptr() + 8 * r0, 2 * R,
+            scores_ptr + 4 * r0 if scores_ptr else None, R,
+            codes_ptr + r0 if codes_ptr else None,
+            None if scratch is None else scratch.data_ptr(),
+            int(wide_word(lx, ly)), stream)
+        if err != 0:
+            raise RuntimeError("sw_banded kernel launch failed: "
+                               + lib.sw_banded_error_string(err).decode())
+        BANDED_LAUNCHES += 1
     return out
 
 
@@ -288,15 +343,52 @@ def band_ranges(ends: np.ndarray, lx: int,
     return out
 
 
+def _launch_index(hap_mat: torch.Tensor) -> BandIndex:
+    """Validate, allocate and launch the index build on the current
+    stream."""
+    global INDEX_LAUNCHES
+    dev = hap_mat.device
+    _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
+    H, ly = hap_mat.shape
+    index = BandIndex(torch.empty((H, ly), dtype=torch.int64, device=dev),
+                      torch.empty((H, ly), dtype=torch.int32, device=dev),
+                      torch.zeros(H, dtype=torch.int32, device=dev))
+    if H == 0 or ly == 0:
+        return index
+    lib = _band_kernel()
+    tmp_keys = torch.empty_like(index.keys)
+    tmp_pos = torch.empty_like(index.pos)
+    err = lib.band_index_build(
+        hap_mat.data_ptr(), H, ly, index.keys.data_ptr(),
+        index.pos.data_ptr(), tmp_keys.data_ptr(), tmp_pos.data_ptr(),
+        index.hap_len.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("band_index kernel launch failed: "
+                           + lib.band_build_error_string(err).decode())
+    INDEX_LAUNCHES += 1
+    return index
+
+
+def band_index(hap_mat: torch.Tensor) -> BandIndex:
+    """The k-mer index of the band builder: per haplotype row its true
+    length and its 6-mer keys sorted by (key, j) (band_torch.BandIndex).
+    hap_mat: uint8 [H, ly] (pad 1). Built once per haplotype matrix and
+    passed to every band_bounds call over it."""
+    if hap_mat.device.type == "cpu":
+        return band_torch.band_index(hap_mat)
+    return _launch_index(hap_mat)
+
+
 def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
-                 idx_ref: torch.Tensor, idx_alt: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                 index: BandIndex) -> Tuple[torch.Tensor, torch.Tensor]:
     """Validate, allocate and launch the band builder on the current
     stream. Its match scratch is sized exactly: the count kernel's counts
     are summed on the device and the total is read (the host waits for the
-    count pass there). A chunk within BAND_SCRATCH_BYTES runs one chain
-    pass; a larger one reads every problem's sum and runs the pass over
-    the problem ranges of band_ranges, each in scratch of its own size."""
+    count pass there). A chunk within BAND_SCRATCH_BYTES (less the index)
+    runs one chain pass; a larger one reads every problem's sum and runs
+    the pass over the problem ranges of band_ranges, each in scratch of its
+    own size."""
     global BAND_LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
@@ -307,10 +399,13 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
     H, ly = hap_mat.shape
     if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
         raise ValueError("idx_ref and idx_alt must have one entry per read")
-    if lx >= 1 << 23 or lx * ly >= 1 << 31:
-        raise ValueError(f"read and haplotype widths ({lx}, {ly}): the band "
-                         "builder keeps chain scores below 2^25 and match "
-                         "indices in int32")
+    _check(index.keys, "index.keys", torch.int64, 2, dev)
+    _check(index.pos, "index.pos", torch.int32, 2, dev)
+    _check(index.hap_len, "index.hap_len", torch.int32, 1, dev)
+    if (index.keys.shape != (H, ly) or index.pos.shape != (H, ly)
+            or index.hap_len.shape != (H,)):
+        raise ValueError(f"the index is not one of a [{H}, {ly}] haplotype "
+                         "matrix")
     P = 2 * R
     jlo = torch.empty((lx, P), dtype=torch.int32, device=dev)
     jhi = torch.empty((lx, P), dtype=torch.int32, device=dev)
@@ -318,54 +413,56 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
         return jlo, jhi
     lib = _band_kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    keys = torch.empty((H, ly), dtype=torch.int64, device=dev)
-    hap_len = torch.empty(H, dtype=torch.int32, device=dev)
     counts = torch.empty(P, dtype=torch.int64, device=dev)
-    err = lib.band_build_count(
-        reads.data_ptr(), R, lx, hap_mat.data_ptr(), H, ly,
-        idx_ref.data_ptr(), idx_alt.data_ptr(), keys.data_ptr(),
-        hap_len.data_ptr(), counts.data_ptr(), stream)
+    problems = (reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
+                idx_alt.data_ptr(), index.keys.data_ptr(),
+                index.pos.data_ptr(), index.hap_len.data_ptr())
+    err = lib.band_build_count(*problems, counts.data_ptr(), stream)
     if err == 0:
         ends = torch.cumsum(counts, 0)
         total = int(ends[-1])
+        budget = max(0, BAND_SCRATCH_BYTES - 12 * H * ly)
         ranges = [(0, P, total)]
-        if 12 * total + 8 * lx * P > BAND_SCRATCH_BYTES:
+        if 12 * total + 8 * lx * P > budget:
             e = ends.cpu().numpy()  # every problem's sum, only when needed
             ranges = [(p0, p1, int(e[p1 - 1] - (e[p0 - 1] if p0 else 0)))
-                      for p0, p1 in band_ranges(e, lx, BAND_SCRATCH_BYTES)]
+                      for p0, p1 in band_ranges(e, lx, budget)]
         for p0, p1, n in ranges:
             matches = torch.empty((3, max(n, 1)), dtype=torch.int32,
                                   device=dev)
             work = torch.empty((2, p1 - p0, lx), dtype=torch.int32,
                                device=dev)
             err = lib.band_build_chain(
-                reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
-                idx_alt.data_ptr(), keys.data_ptr(), hap_len.data_ptr(),
-                ends.data_ptr(), p0, p1, matches[0].data_ptr(),
+                *problems, ends.data_ptr(), p0, p1, matches[0].data_ptr(),
                 matches[1].data_ptr(), matches[2].data_ptr(),
                 work[0].data_ptr(), work[1].data_ptr(), jlo.data_ptr(),
-                jhi.data_ptr(), stream)
+                jhi.data_ptr(), int(lx >= BAND_WIDE_KEYS_LX), stream)
             if err != 0:
                 break
+            BAND_LAUNCHES += 1
     if err != 0:
         raise RuntimeError("band_build kernel launch failed: "
                            + lib.band_build_error_string(err).decode())
-    BAND_LAUNCHES += 1
     return jlo, jhi
 
 
 def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
-                idx_ref: torch.Tensor, idx_alt: torch.Tensor
+                idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                index: Optional[BandIndex] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chained-band bounds (k = 6, w = 20) of each read against its ref and
     alt haplotype rows: (jlo, jhi) int32 [lx, 2R], problem 2r the read's
     ref and 2r + 1 its alt; the same values as the host reference
     ops/sw_native.band_bounds. reads: uint8 [R, lx] (pad 0); hap_mat: uint8
     [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat (the
-    caller checks the range)."""
+    caller checks the range); index: band_index(hap_mat), built here when
+    not given. The plain version on the CPU compares every pair of 6-mers
+    and takes no index."""
     if reads.device.type == "cpu":
         return band_torch.band_bounds(reads, hap_mat, idx_ref, idx_alt)
-    return _launch_band(reads, hap_mat, idx_ref, idx_alt)
+    if index is None:
+        index = band_index(hap_mat)
+    return _launch_band(reads, hap_mat, idx_ref, idx_alt, index)
 
 
 def _to(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -464,22 +561,21 @@ class SwBackend:
 
 
 class BandedSwBackend:
-    """--sw-mode banded on `device`: the CUDA band builder and banded
-    kernel (kernel=True, needs a CUDA device) or their plain PyTorch
-    versions (kernel=False). Per chunk the band bounds are built on the
-    device, on the current stream after the chunk's copy. The band
-    builder's wrapper waits for its count pass (it reads the match sums to
-    size the scratch), so chunk k's chain pass and banded DP, not its
-    count pass, overlap chunk k+1's host gather. Empty haplotypes get an
-    empty band and score 0."""
+    """--sw-mode banded on `device`: the CUDA index build, band builder and
+    banded kernel (kernel=True, needs a CUDA device) or the plain PyTorch
+    band builder and banded DP (kernel=False). Per call (one shape bucket)
+    the haplotypes' k-mer index is built once on the device; per chunk the
+    band bounds are built there, on the current stream after the chunk's
+    copy. The band builder's wrapper waits for its count pass (it reads the
+    match sums to size the scratch), so chunk k's chain pass and banded DP,
+    not its count pass, overlap chunk k+1's host gather. Empty haplotypes
+    get an empty band and score 0."""
 
     def __init__(self, device: str = "cuda", kernel: bool = True):
         self.device = torch.device(device)
         if kernel and self.device.type != "cuda":
             raise ValueError("the CUDA kernel needs a CUDA device")
-        self._bounds, self._pair_calls = (
-            (band_bounds, banded_pair_calls) if kernel
-            else (band_torch.band_bounds, sw_banded_torch.banded_pair_calls))
+        self.kernel = kernel
 
     def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int8 [R] call codes. x is a uint8 [R, lx] array or a provider
@@ -488,8 +584,15 @@ class BandedSwBackend:
         the device until all chunks are launched."""
         R, _ = x.shape
         _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
+        if R == 0:
+            return np.zeros(0, np.int8)
         dev = self.device
         hap = _to(hap_mat, np.uint8, dev)
+        if self.kernel:
+            index = band_index(hap)
+            calls = banded_pair_calls
+        else:
+            calls = sw_banded_torch.banded_pair_calls
         outs = []
         for start in range(0, R, CHUNK_READS):
             n = min(CHUNK_READS, R - start)
@@ -497,8 +600,9 @@ class BandedSwBackend:
                      np.uint8, dev)
             ir = _to(idx_ref[start : start + n], np.int32, dev)
             ia = _to(idx_alt[start : start + n], np.int32, dev)
-            jlo, jhi = self._bounds(xc, hap, ir, ia)
-            outs.append(self._pair_calls(xc, hap, ir, ia, jlo, jhi))
-        if not outs:
-            return np.zeros(0, np.int8)
+            if self.kernel:
+                jlo, jhi = band_bounds(xc, hap, ir, ia, index)
+            else:
+                jlo, jhi = band_torch.band_bounds(xc, hap, ir, ia)
+            outs.append(calls(xc, hap, ir, ia, jlo, jhi))
         return torch.cat(outs).cpu().numpy()
