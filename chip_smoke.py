@@ -9,18 +9,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card and toolchain: name and power limit (nvidia-smi), torch, CUDA;
   2. build: the CUDA kernels sw_pair.cu, sw_banded.cu and band_build.cu
      (nvcc), libgenomio and the host band reference band_bounds.cpp (g++)
-     from the checkout's sources, and a probe of band_build's candidate
-     scoring (nvcc, SASS only), all in parallel, with the compiler's
-     register report;
+     from the checkout's sources, two probes (nvcc, SASS only: the least
+     DP cell update, and band_build's candidate scoring) and a DPX rate
+     probe (nvcc), all in parallel, with the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, exact
-     equality. sw_pair (int32 scores and int8 codes): dense and 2-bit reads
-     over the shape families of the full path, the interleaved-index and
-     plain-row entries (the TPU kernels K5 and K6), one read long enough to
-     take the 32-bit scratch word near its 16-bit halves' limit, and reads
-     of 65,602 bases against a 70,000-base haplotype, scored above that
-     limit by the 64-bit word (two launches of one warp each, a minute or
-     more, on streams of their own beside the rest of this phase; every
-     other check waits on the default stream only). band_index: the k-mer
+     equality. sw_pair (int32 scores and int8 codes) on each of its three
+     routes: dense and 2-bit reads over the shape families of the full
+     path, the interleaved-index and plain-row entries (the TPU kernels K5
+     and K6); reads at min(lx, ly) = 32,767 that score 32,767, the packed
+     route's edge; one read long enough to take the 32-bit scratch word
+     near its 16-bit halves' limit; and reads of 65,602 bases against a
+     70,000-base haplotype, scored above that limit by the 64-bit word
+     (two launches of one warp each, a minute or more, on streams of their
+     own beside the rest of this phase; every other check waits on the
+     default stream only). band_index: the k-mer
      index of every banded family's haplotypes against its plain version.
      band_build: its int32
      bounds against the plain version and the host reference on the
@@ -36,8 +38,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ranges, against the plain versions and the host reference;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
      CUDA events: each kernel, its plain version, and its bound at the
-     card's instruction issue rate (the SASS of each hot loop, cuobjdump)
-     against its bytes; for sw_banded the instructions per cell of its
+     card's instruction issue rate against its bytes. The DP kernels'
+     bound charges each needed cell the least cell update, read from the
+     SASS of a probe that includes neither kernel (cuobjdump); beside it
+     the SASS of each hot loop and the DPX add-max rate of the card. For
+     sw_pair both its packed and its 32-bit scalar route, in turns; for
+     sw_banded the instructions per cell of its
      core and of its masked zones, the cells it visits and the lane slots
      its divergence leaves idle; for band_build (given its index) the host
      reference's time per pair (the route it replaced); band_index on the
@@ -75,16 +81,22 @@ HBM_BYTES_PER_S = 3.35e12
 # instruction (32 threads) per clock, whatever pipe the instruction uses
 ISSUE_PER_SM_CLK = 4 * 32
 # the instantiations the paths launch: full, 2-bit reads and int8 call
-# codes; banded, int8 call codes
-# (32-bit scratch words; 32-bit chain keys)
-MAIN_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
+# codes on the packed route (and, timed beside it, on the 32-bit scalar
+# route); banded, int8 call codes (32-bit scratch words; 32-bit chain keys)
+MAIN_KERNEL_SYMBOL = "sw_pair16x2_kernelILb1ELb1E"
+SCALAR_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
 BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1ELb0EE"
 CHAIN_KERNEL_SYMBOL = "chain_kernelIiE"
 # the SASS instruction that marks one DP cell in each kernel's hot loop:
-# the three-way H maximum with zero; and one chain DP step (64 candidate
-# predecessors) in band_build's: the warp-wide maximum
+# on the packed route one per two problems' cell, the add-max with zero
+# (T); on the scalar routes and in sw_banded the three-way H maximum with
+# zero; and one chain DP step (64 candidate predecessors) in band_build's:
+# the warp-wide maximum
+PACKED_CELL_OPCODE = "VIADDMNMX.S16x2.RELU"
 CELL_OPCODE = "VIMNMX3.RELU"
 CHAIN_OPCODE = "REDUX"
+# the DPX opcodes (add-max and three-way max) among a loop's instructions
+DPX_OPCODES = ("VIADDMNMX", "VIMNMX3")
 STRIP = 8  # read rows per strip of sw_banded.cu (kStrip)
 # band_build's bound charges each chain candidate the instructions of its
 # scoring alone (band_build.cu `candidate`) and one max: the SASS of a loop
@@ -122,6 +134,107 @@ __global__ void load_probe(const int* __restrict__ slots, int n, int a,
 }
 '''
 KEY_LOOKUP_INSTR = 7
+# The DP kernels' bound charges each needed cell the least update of the
+# recurrence on this card: two problems per 32-bit word in 16x2 DPX, as
+# one loop step updates two packed cells from loaded inputs (read and
+# haplotype words, G = H - 6 of the diagonal and of the left cell) with E
+# and F carried: E, the substitution score (xnor, then add-max to 7 or 1),
+# H with zero (T), T - 6, G, the next F, and half a three-way max for the
+# running best. Its SASS per step, less that of the same loop with only
+# its loads (their LOP3s and register moves, which only consume the loads,
+# not counted), over four problem cells. It includes neither kernel's
+# source.
+CELL_PROBE_SRC = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// ~(a ^ b) in one instruction
+__device__ __forceinline__ uint32_t xnor(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, 0, 0xc3;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// the second constants of the two add-maxes that take two, in registers
+__device__ uint32_t consts[2] = {0x00080008u, 0xfffafffau};
+
+// v: (read word, haplotype word, G diagonal, G left)
+__device__ __forceinline__ uint32_t cell(uint4 v, uint32_t& e, uint32_t& f,
+                                         uint32_t k8, uint32_t km6) {
+  e = __viaddmax_s16x2(e, 0xffffffffu, v.w);
+  const uint32_t q = __viaddmax_s16x2(xnor(v.x, v.y), k8, 0x00010001u);
+  const uint32_t t = __viaddmax_s16x2_relu(v.z, q, e);
+  const uint32_t t6 = __viaddmax_s16x2(t, km6, 0xfffafffau);
+  const uint32_t g = __viaddmax_s16x2(f, 0xfffafffau, t6);
+  f = __viaddmax_s16x2(f, 0xffffffffu, t6);
+  return g;
+}
+
+__global__ void cell_probe(const uint4* __restrict__ cells, int n,
+                           uint32_t* __restrict__ out) {
+  const uint32_t k8 = consts[0], km6 = consts[1];
+  uint32_t e = 0x8ad08ad0u, f = 0x8ad08ad0u, best = 0xfffafffau;
+#pragma unroll 1
+  for (int k = 0; k + 1 < n; k += 2) {
+    const uint32_t a = cell(cells[k], e, f, k8, km6);
+    const uint32_t b = cell(cells[k + 1], e, f, k8, km6);
+    best = __vimax3_s16x2(best, a, b);
+  }
+  out[threadIdx.x] = best ^ e ^ f;
+}
+
+// the same loop and loads, consumed by XORs (LOP3) only
+__global__ void cell_load_probe(const uint4* __restrict__ cells, int n,
+                                uint32_t* __restrict__ out) {
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int k = 0; k + 1 < n; k += 2) {
+    const uint4 a = cells[k], b = cells[k + 1];
+    acc ^= a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w;
+  }
+  out[threadIdx.x] = acc;
+}
+'''
+# The card's rate of the 16x2 DPX add-max: eight independent chains per
+# thread, a full card of warps, timed with CUDA events (a plain C launch,
+# bound through ctypes).
+DPX_RATE_SRC = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+__global__ void dpx_rate(const uint32_t* __restrict__ in, int iters,
+                         uint32_t* __restrict__ out) {
+  uint32_t a[8];
+  const uint32_t b = in[0];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = in[1 + k] + threadIdx.x;
+#pragma unroll 1
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t n[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        n[k] = __viaddmax_s16x2(a[k], b, a[(k + 1) % 8]);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = n[k];
+    }
+  }
+  uint32_t s = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s ^= a[k];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// blocks x 256 threads, each 32 add-maxes per iteration; 0 = ok
+extern "C" int dpx_rate_launch(const void* in, int iters, int blocks,
+                               void* out, void* stream) {
+  dpx_rate<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), iters, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+'''
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
@@ -272,7 +385,35 @@ def near_limit_family(rng):
     alt = hap.copy()
     alt[100] = bases[(np.searchsorted(bases, alt[100]) + 1) % 4]
     idx = np.zeros(1, np.int32)
-    return read[None, :], np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
+    return (read[None, :], np.stack([hap, alt]), idx, idx + 1,
+            [[n - 7, n - 13]])
+
+
+def packed_limit_family(rng):
+    """Reads at min(lx, ly) = 32,767, the packed route's edge (lx = 32,768,
+    ly = 32,767), against a 32,767-base haplotype and its alt, the same
+    with base 32,700 deleted: the haplotype itself (ref n = 32,767, alt
+    n - 7: one base fewer and a 1-base gap near the end), the haplotype
+    with 2 bases inserted after base 32,750 and cut to n (n - 9, n - 16),
+    the alt (n - 7, n - 1) and the haplotype from base 1 (n - 1, n - 8).
+    Known scores per read as [ref, alt]."""
+    import numpy as np
+
+    n, p = 32767, 32700
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    hap = rng.choice(bases, n)
+    alt = np.concatenate([hap[:p], hap[p + 1 :]])
+    haps = np.ones((2, n), np.uint8)
+    haps[0] = hap
+    haps[1, : n - 1] = alt
+    reads = [hap, np.concatenate([hap[:32750], np.frombuffer(b"AC", np.uint8),
+                                  hap[32750 : n - 2]]), alt, hap[1:]]
+    x = np.zeros((len(reads), n + 1), np.uint8)
+    for i, r in enumerate(reads):
+        x[i, : len(r)] = r
+    idx = np.zeros(len(reads), np.int32)
+    known = [[n, n - 7], [n - 9, n - 16], [n - 7, n - 1], [n - 1, n - 8]]
+    return x, haps, idx, idx + 1, known
 
 
 def wide_full_family(rng, n_reads=4, n=65600, ly=70000):
@@ -485,38 +626,58 @@ def phase_card():
     return card, clock_mhz * 1e6
 
 
-def build_probe():
-    """PROBE_SRC compiled for sm_90a into a cubin (SASS only) in
-    build/chip_smoke_probe/; returns its path."""
+def build_probe(name, source, kind="-cubin"):
+    """`source` compiled for sm_90a into build/chip_smoke_probe/: a cubin
+    (SASS only) or, kind "-shared", a library to load with ctypes; returns
+    its path."""
     from vartrix_tpu_torch.ops import _build
 
     out_dir = os.path.join(HERE, "build", "chip_smoke_probe")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(out_dir, "candidate_probe.cu")
+    src = os.path.join(out_dir, f"{name}.cu")
     with open(src, "w") as f:
-        f.write(PROBE_SRC)
-    out = os.path.join(out_dir, "candidate_probe.cubin")
-    subprocess.run([_build._nvcc(), "-cubin", "-gencode",
+        f.write(source)
+    out = os.path.join(out_dir, name + (".cubin" if kind == "-cubin"
+                                        else ".so"))
+    flags = ["-Xcompiler", "-fPIC"] if kind == "-shared" else []
+    subprocess.run([_build._nvcc(), kind, *flags, "-gencode",
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                     "-I", os.path.dirname(_build.BAND_BUILD_SRC), "-o", out,
                     src], check=True, capture_output=True, text=True)
     return out
 
 
+def registers(library, symbol):
+    """The registers ptxas reports for the kernel function `symbol`."""
+    from vartrix_tpu_torch.ops import _build
+
+    lines = _build.build_log(library).splitlines()
+    for i, line in enumerate(lines):
+        if "entry function" in line and symbol in line:
+            for nxt in lines[i + 1 : i + 4]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    return int(m.group(1))
+    fail(f"no register report for {symbol}")
+
+
 def phase_build():
-    """Builds every library at once; returns the three kernels' paths and
-    the probe's."""
+    """Builds every library at once; returns the three kernels' paths, the
+    two probes' and the DPX rate probe's."""
     from vartrix_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     builders = (_build.kernel_library, _build.banded_kernel_library,
                 _build.band_build_library, _build.genomio_library,
-                _build.band_bounds_library, build_probe)
+                _build.band_bounds_library,
+                lambda: build_probe("candidate_probe", PROBE_SRC),
+                lambda: build_probe("cell_probe", CELL_PROBE_SRC),
+                lambda: build_probe("dpx_rate", DPX_RATE_SRC, "-shared"))
     with ThreadPoolExecutor(max_workers=len(builders)) as ex:
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
-        f"band_bounds.cpp + the candidate probe in "
+        f"band_bounds.cpp + the candidate, cell and DPX rate probes in "
         f"{time.perf_counter() - t0:.2f}s")
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -569,18 +730,47 @@ def _describe(n_instr, n, hist):
             "opcodes " + ", ".join(f"{k} {v}" for k, v in hist.most_common()))
 
 
+def dpx_count(hist):
+    return sum(v for k, v in hist.items() if k.startswith(DPX_OPCODES))
+
+
 def phase_sass(paths):
-    """Instructions per DP cell of sw_pair's hot loop and of sw_banded's
-    core and masked loops; per chain candidate, the function's own
-    (candidate scoring and one max, from the probe) and band_build's DP
-    step (one warp step scores 64 candidates, so its warp instructions x
-    32 lanes / 64, for information)."""
-    kern, banded, band, probe = paths
-    n_instr, n, hist = max(sass_loops(kern, MAIN_KERNEL_SYMBOL, CELL_OPCODE),
+    """Instructions per DP cell: the least cell update (the cell probe),
+    and for information sw_pair's hot loops (packed: two problem cells per
+    marked instruction; scalar) and sw_banded's core and masked loops; per
+    chain candidate, the function's own (candidate scoring and one max,
+    from the probe) and band_build's DP step (one warp step scores 64
+    candidates, so its warp instructions x 32 lanes / 64, for
+    information). Returns a dict of them."""
+    kern, banded, band, probe, cell_probe, _ = paths
+    n_instr, n, hist = max(sass_loops(kern, MAIN_KERNEL_SYMBOL,
+                                      PACKED_CELL_OPCODE),
                            key=lambda t: t[1])
-    log(f"sass: {MAIN_KERNEL_SYMBOL} hot loop, per cell: "
+    log(f"sass: {MAIN_KERNEL_SYMBOL} hot loop, per two problems' cell: "
         + _describe(n_instr, n, hist))
-    pair = n_instr / n
+    packed = n_instr / (2 * n)
+    packed_dpx = dpx_count(hist) / (2 * n)
+    n_instr, n, hist = max(sass_loops(kern, SCALAR_KERNEL_SYMBOL,
+                                      CELL_OPCODE), key=lambda t: t[1])
+    log(f"sass: {SCALAR_KERNEL_SYMBOL} hot loop, per cell: "
+        + _describe(n_instr, n, hist))
+    scalar = n_instr / n
+    steps = {}
+    for sym in ("_Z10cell_probe", "_Z15cell_load_probe"):
+        loop = min(sass_loops(cell_probe, sym, "LDG"), key=lambda t: t[0])
+        free = (loop[2]["LOP3.LUT"] + loop[2]["IMAD.MOV.U32"]
+                if sym == "_Z15cell_load_probe" else 0)
+        steps[sym] = (loop[0] - free, dpx_count(loop[2]))
+        log(f"sass: {sym} loop, per step (two packed cells): "
+            + _describe(loop[0], 1, loop[2])
+            + (f"; {free} LOP3 and moves not counted" if free else ""))
+    cell = (steps["_Z10cell_probe"][0] - steps["_Z15cell_load_probe"][0]) / 4
+    cell_dpx = steps["_Z10cell_probe"][1] / 4
+    if cell <= 0:
+        fail("the cell probe's loop is no longer than its load probe's")
+    log(f"sass: the least cell update {cell:.4f} instructions per problem "
+        f"cell ({cell_dpx:.4f} of them DPX); sw_pair's packed loop issues "
+        f"{packed:.4f} ({packed_dpx:.4f} DPX), its scalar loop {scalar:.4f}")
     loops = sorted(sass_loops(banded, BANDED_KERNEL_SYMBOL, CELL_OPCODE),
                    key=lambda t: t[0] / t[1])
     for name, loop in (("core", loops[0]), ("masked", loops[-1])):
@@ -606,11 +796,14 @@ def phase_sass(paths):
     log(f"sass: a chain candidate's own work {per_candidate} instructions "
         f"(scoring and one max); band_build's DP step issues "
         f"{n_instr / n * 32 / 64:.4f} per candidate (64 per warp step)")
-    return pair, zones, per_candidate
+    return dict(cell=cell, cell_dpx=cell_dpx, packed=packed,
+                packed_dpx=packed_dpx, scalar=scalar, zones=zones,
+                per_candidate=per_candidate)
 
 
 def phase_equality(rng):
-    """Kernel against plain version on every family; returns max |err|."""
+    """sw_pair against its plain version on every family and route;
+    returns max |err|."""
     import numpy as np
     import torch
 
@@ -644,30 +837,55 @@ def phase_equality(rng):
             forms.append(("2bit", torch.from_numpy(xp).cuda(),
                           torch.from_numpy(lens).cuda()))
         for form, reads, lens in forms:
-            got = sw_cuda.pair_scores(reads, ht, irt, iat, read_lens=lens)
-            codes = sw_cuda.pair_calls(reads, ht, irt, iat, read_lens=lens)
-            sync()
-            err = int((got - plain).abs().max().item()) if len(x) else 0
-            bad = int((codes != plain_codes).sum().item())
-            worst = max(worst, err)
+            res = []
+            for route in sw_cuda.PAIR_ROUTES:
+                got = sw_cuda.pair_scores(reads, ht, irt, iat,
+                                          read_lens=lens, route=route)
+                codes = sw_cuda.pair_calls(reads, ht, irt, iat,
+                                           read_lens=lens, route=route)
+                sync()
+                err = int((got - plain).abs().max().item()) if len(x) else 0
+                bad = int((codes != plain_codes).sum().item())
+                worst = max(worst, err)
+                res.append(f"{route} max|err|={err} code mismatches={bad}")
+                if err or bad:
+                    fail(f"kernel disagrees with the plain version on {name} "
+                         f"({form}, {route})")
+            by_width = sw_cuda.pair_route(x.shape[1], haps.shape[1])
             log(f"sw_pair {name:11s} {form:5s} R={len(x)} lx={x.shape[1]} "
-                f"ly={haps.shape[1]}: max|err|={err} code mismatches={bad}")
-            if err or bad:
-                fail(f"kernel disagrees with the plain version on {name} "
-                     f"({form})")
+                f"ly={haps.shape[1]} ({by_width} by width): "
+                + "; ".join(res))
         if name == "ly_4032":
             wide = (x, haps, ir, ia)
-    # near the scratch word's limit: dense scores, against the plain version
-    # and the known scores
-    x, haps, ir, ia, known = near_limit_family(rng)
-    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
-    got = sw_cuda.pair_scores(xt, ht, irt, iat)[:, 0].tolist()
-    plain = sw_torch.pair_scores(xt, ht, irt, iat)[:, 0].tolist()
-    log(f"sw_pair near_limit  dense R=1 lx={x.shape[1]} ly={haps.shape[1]}: "
-        f"kernel {got}, plain {plain}, known {known}")
-    if not got == plain == known:
-        fail("kernel disagrees near the scratch word's limit")
-    worst = max(worst, *(abs(a - b) for a, b in zip(got, plain)))
+    # the packed route's edge, then near the 32-bit scratch word's limit:
+    # against the plain version and the known scores
+    for fam, route in ((packed_limit_family, "packed"),
+                       (near_limit_family, "word32")):
+        x, haps, ir, ia, known = fam(rng)
+        if sw_cuda.pair_route(x.shape[1], haps.shape[1]) != route:
+            fail(f"{fam.__name__} does not take the {route} route")
+        xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+        t0 = time.perf_counter()
+        got = sw_cuda.pair_scores(xt, ht, irt, iat)
+        codes = None
+        if route == "packed":
+            xp, lens = pack2(x)
+            codes = sw_cuda.pair_calls(torch.from_numpy(xp).cuda(), ht, irt,
+                                       iat, read_lens=torch.from_numpy(
+                                           lens).cuda())
+        sync()
+        dt = time.perf_counter() - t0
+        plain = sw_torch.pair_scores(xt, ht, irt, iat)
+        got_l, plain_l = got.T.tolist(), plain.T.tolist()
+        bad = 0 if codes is None else int(
+            (codes != sw_torch.calls_from_scores(plain)).sum().item())
+        log(f"sw_pair {fam.__name__[:-7]:11s} dense R={len(x)} "
+            f"lx={x.shape[1]} ly={haps.shape[1]} ({route}): kernel {got_l}, "
+            f"plain {plain_l}, known {known}"
+            + ("" if codes is None else f"; 2-bit code mismatches {bad}")
+            + f"; {dt:.1f} s")
+        if not got_l == plain_l == known or bad:
+            fail(f"kernel disagrees on {fam.__name__} ({route})")
     # the plain (x, y) call of K6: the same kernel with identity indices
     x, haps, ir, ia = wide
     xt = torch.from_numpy(x).cuda()
@@ -1019,14 +1237,65 @@ def time_cuda(fn, warmup, reps):
     return statistics.median(times)
 
 
-def phase_timing(rng, instr_per_cell, clock_hz):
-    """Kernel and plain times at the main bucket shape, and the bound: the
-    needed cells x the instructions the compiled hot loop issues per cell,
-    over the card's instruction issue rate (every instruction issues once,
-    whatever pipe runs it), against the bytes over HBM bandwidth."""
+def pair_cells(x, haps, idx_ref, idx_alt, strip, cols=1):
+    """Cells sw_pair's packed route computes: per read, both problems over
+    its length rounded up to `strip` rows and the longer haplotype rounded
+    up to `cols` columns."""
+    import numpy as np
+
+    lx_true = (x != 0).sum(1).astype(np.int64)
+    lx_true = (lx_true + strip - 1) // strip * strip
+    h_true = (haps != 1).sum(1).astype(np.int64)
+    h = np.maximum(h_true[idx_ref], h_true[idx_alt])
+    h = (h + cols - 1) // cols * cols
+    return int((2 * lx_true * h * (h_true[idx_ref] + h_true[idx_alt] > 0)
+                ).sum())
+
+
+def dpx_rate(path, clock_hz):
+    """The card's 16x2 DPX add-max rate, warp instructions per SM and
+    clock, from DPX_RATE_SRC over eight blocks of 256 threads per SM."""
+    import ctypes
+
     import torch
 
-    from vartrix_tpu_torch.ops import sw_cuda, sw_torch
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.dpx_rate_launch.restype = ci
+    lib.dpx_rate_launch.argtypes = [vp, ci, ci, vp, vp]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 8 * sms, 4096
+    src = torch.full((16,), 0x01010101, dtype=torch.int32, device="cuda")
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = lib.dpx_rate_launch(src.data_ptr(), iters, blocks,
+                                  out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"the DPX rate probe did not launch ({err})")
+
+    ms = time_cuda(run, 2, 5)
+    rate = blocks * 256 / 32 * iters * 32 / (ms / 1e3) / sms / clock_hz
+    log(f"timing DPX add-max (VIADDMNMX.S16x2) rate: {rate:.3f} warp "
+        f"instructions per SM per clock ({ms:.4f} ms for {blocks} blocks x "
+        f"256 threads x {iters * 32} add-maxes; issue is "
+        f"{ISSUE_PER_SM_CLK // 32} per SM per clock)")
+    return rate
+
+
+def phase_timing(rng, sass, clock_hz, rate_path):
+    """sw_pair at the main bucket shape: its packed route (the path's) and
+    its 32-bit scalar route in turns, the plain version, and the bound:
+    the needed cells x the least cell update's instructions (the cell
+    probe's SASS) over the card's instruction issue rate (every
+    instruction issues once, whatever pipe runs it), against the bytes
+    over HBM bandwidth. For information: the same cells at the probe's
+    DPX instructions over the card's DPX add-max rate, the kernel's own
+    SASS per cell, its registers and the extra cells its pairs compute."""
+    import torch
+
+    from vartrix_tpu_torch.ops import _build, sw_cuda, sw_torch
 
     x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
                                   read_len=(140, 150), hap_len=(180, 224))
@@ -1034,39 +1303,64 @@ def phase_timing(rng, instr_per_cell, clock_hz):
     _, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     xpt = torch.from_numpy(xp).cuda()
     lt = torch.from_numpy(lens).cuda()
-    ms = time_cuda(lambda: sw_cuda.pair_calls(xpt, ht, irt, iat,
-                                              read_lens=lt), 3, 15)
+    times = collections.defaultdict(list)
+    for route in ("word32", "packed", "packed", "word32"):
+        times[route].append(time_cuda(lambda: sw_cuda.pair_calls(
+            xpt, ht, irt, iat, read_lens=lt, route=route), 3, 15))
+    ms, scalar_ms = (statistics.median(times[r]) for r in ("packed",
+                                                           "word32"))
     plain_ms = time_cuda(lambda: sw_torch.pair_calls(xpt, ht, irt, iat,
                                                      read_lens=lt), 1, 3)
     cells = true_cells(x, haps, ir, ia)
-    computed = true_cells(x, haps, ir, ia, strip=16)
-    padded = 2 * MAIN_READS * MAIN_LX * MAIN_LY
+    strip = sw_cuda.PACKED_STRIP
+    computed = pair_cells(x, haps, ir, ia, strip, sw_cuda.PACKED_COLS)
+    own = true_cells(x, haps, ir, ia, strip=strip)
+    scalar_computed = true_cells(x, haps, ir, ia, strip=sw_cuda.PAIR_STRIP)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_per_s = sms * ISSUE_PER_SM_CLK * clock_hz
-    ops = cells * instr_per_cell
-    ops_ms = ops / issue_per_s * 1e3
+    ops_ms = cells * sass["cell"] / issue_per_s * 1e3
+    rate = dpx_rate(rate_path, clock_hz)
+    dpx_ms = cells * sass["cell_dpx"] / (sms * 32 * rate * clock_hz) * 1e3
     nbytes = (xp.nbytes + lens.nbytes + haps.nbytes + ir.nbytes + ia.nbytes
               + MAIN_READS)  # inputs read once, int8 codes written once
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    regs = {sym: registers(_build.kernel_library(), sym)
+            for sym in (MAIN_KERNEL_SYMBOL, SCALAR_KERNEL_SYMBOL)}
     log(f"timing sw_pair at lx={MAIN_LX} ly={MAIN_LY}, {2 * MAIN_READS} pairs "
-        f"(2-bit reads, int8 codes): {ms:.4f} ms "
-        f"({cells / ms / 1e6:.1f} G needed cells/s); plain {plain_ms:.3f} ms")
-    log(f"timing bound: {cells} needed cells (the kernel computes "
-        f"{computed} in whole 16-row strips; {padded} padded) x "
-        f"{instr_per_cell:.4f} instructions per cell (SASS) / ({sms} SMs x "
+        f"(2-bit reads, int8 codes): packed route {ms:.4f} ms "
+        f"({cells / ms / 1e6:.1f} G needed cells/s; "
+        + ", ".join(f"{t:.4f}" for t in times["packed"])
+        + f"), 32-bit scalar route {scalar_ms:.4f} ms ("
+        + ", ".join(f"{t:.4f}" for t in times["word32"])
+        + f"), in turns; plain {plain_ms:.3f} ms")
+    log(f"timing sw_pair cells: {cells} needed; the packed route computes "
+        f"{computed} ({strip}-row strips, pairs to their longer haplotype "
+        f"rounded up to {sw_cuda.PACKED_COLS} columns: {computed - own} "
+        f"extra cells beyond each problem's own strips), the scalar route "
+        f"{scalar_computed} ({sw_cuda.PAIR_STRIP}-row strips); SASS per "
+        f"problem cell: packed loop {sass['packed']:.4f} "
+        f"({sass['packed_dpx']:.4f} DPX), scalar loop {sass['scalar']:.4f}, "
+        f"least update (probe) {sass['cell']:.4f} ({sass['cell_dpx']:.4f} "
+        f"DPX); registers: packed {regs[MAIN_KERNEL_SYMBOL]}, scalar "
+        f"{regs[SCALAR_KERNEL_SYMBOL]}")
+    log(f"timing bound: {cells} needed cells x {sass['cell']:.4f} "
+        f"instructions per cell (the cell probe's SASS) / ({sms} SMs x "
         f"{ISSUE_PER_SM_CLK} per clock x {clock_hz / 1e9:.3f} GHz = "
         f"{issue_per_s:.6g} instructions/s) = {ops_ms:.4f} ms; {nbytes} "
         f"bytes / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of the kernel's "
-        f"time; library_ms null: no PyTorch call computes Smith-Waterman")
+        f"{bound_ms:.4f} ms: {100 * bound_ms / ms:.1f} % of the packed "
+        f"route's time, {100 * bound_ms / scalar_ms:.1f} % of the scalar "
+        f"route's; at the card's DPX add-max rate the probe's "
+        f"{sass['cell_dpx']:.4f} DPX per cell take {dpx_ms:.4f} ms "
+        f"({100 * dpx_ms / ms:.1f} % of the packed route's time); "
+        "library_ms null: no PyTorch call computes Smith-Waterman")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=None)
+                library_ms=None, scalar_ms=scalar_ms)
 
 
-def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
-                        threads):
+def phase_banded_timing(rng, sass, clock_hz, threads):
     """band_build and sw_banded at the main bucket shape: kernel and plain
     times, bounds, and what the zones cost.
 
@@ -1075,17 +1369,18 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
     lookups per problem at KEY_LOOKUP_INSTR each plus min(64, rank) chain
     candidates per match of these inputs at the instructions of scoring
     one (the probe's SASS), at the issue rate.
-    sw_banded's bound: the in-band cells x the recurrence's own
-    instructions per cell (sw_pair's hot loop; a scan that starts and
-    stops each row at its band edges tests nothing per cell), against its
-    bytes (reads, haplotypes, indices, bounds in, codes out). Also the host
-    reference's time per pair, the route band_build replaced."""
+    sw_banded's bound: the in-band cells x the least cell update (the cell
+    probe's SASS; a scan that starts and stops each row at its band edges
+    tests nothing per cell), against its bytes (reads, haplotypes,
+    indices, bounds in, codes out). Also the host reference's time per
+    pair, the route band_build replaced."""
     import numpy as np
     import torch
 
     from vartrix_tpu_torch.ops import (band_torch, sw_banded_torch, sw_cuda,
                                        sw_native)
 
+    per_candidate, pair_instr = sass["per_candidate"], sass["cell"]
     x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
                                   read_len=(140, 150), hap_len=(180, 224))
     pairs = 2 * MAIN_READS
@@ -1149,13 +1444,16 @@ def phase_banded_timing(rng, pair_instr, zones, per_candidate, clock_hz,
     log(f"timing sw_banded cells: {in_band} in band ({in_band / pairs:.1f} "
         f"per pair; full SW needs {full}, {100 * in_band / full:.1f} %)")
     log(f"timing sw_banded bound: {in_band} in-band cells x "
-        f"{pair_instr:.4f} instructions per cell (the recurrence, sw_pair's "
-        f"SASS) / {issue_per_s:.6g} instructions/s = {ops_ms:.4f} ms; "
+        f"{pair_instr:.4f} instructions per cell (the least cell update, "
+        f"the cell probe's SASS) / {issue_per_s:.6g} instructions/s = "
+        f"{ops_ms:.4f} ms (at sw_pair's scalar loop's {sass['scalar']:.4f} "
+        f"per cell, the bound of PR 7 and before: "
+        f"{in_band * sass['scalar'] / issue_per_s * 1e3:.4f} ms); "
         f"{nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; "
         f"bound {bound_ms:.4f} ms; library_ms null: no PyTorch call "
         "computes Smith-Waterman")
     visited, core, idle = strip_stats(x, jlo, jhi, MAIN_LY)
-    core_i, masked_i = zones
+    core_i, masked_i = sass["zones"]
     issued = core * core_i + (visited - core) * masked_i
     issued_ms = issued / issue_per_s * 1e3
     log(f"timing sw_banded: {ms:.4f} ms ({in_band / ms / 1e6:.1f} G in-band "
@@ -1406,7 +1704,7 @@ def main():
     t_start = time.perf_counter()
     card, clock_hz = phase_card()
     paths = phase_build()
-    pair_instr, zones, per_candidate = phase_sass(paths)
+    sass = phase_sass(paths)
     threads = os.cpu_count() or 1
     rng = np.random.default_rng(2024)
 
@@ -1431,9 +1729,9 @@ def main():
             data, gen_s = e2e_data.result()
         log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in a "
             "worker process, during phase 3)")
-        timing = phase_timing(rng, pair_instr, clock_hz)
+        timing = phase_timing(rng, sass, clock_hz, paths[-1])
         band_timing, banded_timing, index_timing = phase_banded_timing(
-            rng, pair_instr, zones, per_candidate, clock_hz, threads)
+            rng, sass, clock_hz, threads)
         done("timing")
         launches = phase_e2e(work, data)
         done("e2e")
@@ -1463,7 +1761,9 @@ def main():
         n = launches[name]
         log(f"{name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library_ms "
-            f"{t['library_ms']} ({note}), {n} launches on its path")
+            f"{t['library_ms']} ({note}), {n} launches on its path"
+            + (f"; the 32-bit scalar route {t['scalar_ms']:.4f} ms"
+               if "scalar_ms" in t else ""))
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -1472,6 +1772,8 @@ def main():
             "library_ms": t["library_ms"],
             "library_note": note,
         })
+        if "scalar_ms" in t:
+            record["kernels"][-1]["word32_route_ms"] = t["scalar_ms"]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))
     print(card)

@@ -7,10 +7,12 @@ The wrapper functions take tensors. CUDA tensors always go to a kernel;
 CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py,
 ops/band_torch.py), the only case in which it is taken. Each kernel is
 built with nvcc at first use and bound through ctypes; a failed build or
-launch raises. The kernels take every (lx, ly): the DP kernels switch to
-a 64-bit scratch word from min(lx, ly) >= 65536 (wide_word), and every
-wrapper cuts a launch into ranges whose scratch fits a fixed budget
-(read_ranges, band_ranges) and writes them into one output.
+launch raises. The kernels take every (lx, ly): sw_pair runs two problems
+per thread in 16-bit halves while min(lx, ly) <= 32,767 and one per thread
+past that, with a 32-bit scratch word up to 65,535 and a 64-bit one from
+65,536 (pair_route); sw_banded switches to its 64-bit word from 65,536
+(wide_word). Every wrapper cuts a launch into ranges whose scratch fits a
+fixed budget (read_ranges, band_ranges) and writes them into one output.
 
 `SwBackend` is the duck-typed backend contract of the pipeline: calling it
 scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
@@ -49,9 +51,11 @@ BAND_SCRATCH_BYTES = 1 << 30
 # to the next) may take per launch; a chunk that needs more runs over
 # ranges of reads
 DP_SCRATCH_BYTES = 1 << 30
-# read rows per strip of csrc/sw_pair.cu and csrc/sw_banded.cu (kStrip):
-# a read within one strip needs no scratch
+# read rows per strip of csrc/sw_pair.cu (kStrip; kPackedStrip on its
+# packed route) and csrc/sw_banded.cu (kStrip): a read within one strip
+# needs no scratch
 PAIR_STRIP = 16
+PACKED_STRIP = 32
 BANDED_STRIP = 8
 # read width from which the band builder's chain keys (score x 64 +
 # nearness, a score at most the read's length) need 64 bits
@@ -136,33 +140,79 @@ def wide_word(lx: int, ly: int) -> bool:
     return min(lx, ly) >= 1 << 16
 
 
-def dp_scratch_bytes(lx: int, ly: int, banded: bool = False) -> int:
-    """Scratch bytes of one (read, haplotype) problem of sw_pair (ly
-    words) or, banded, of sw_banded (2 ly words: two buffers alternate by
-    strip); none when the read fits one strip."""
-    if lx <= (BANDED_STRIP if banded else PAIR_STRIP):
+# sw_pair's routes (csrc/sw_pair.cu), by their code in sw_pair_launch:
+# two problems per thread in int16 halves, then one per thread with a
+# 32-bit or a 64-bit scratch word
+PAIR_ROUTES = ("packed", "word32", "word64")
+PACKED_MAX = (1 << 15) - 1
+# columns per step of the packed route (kCols): its scratch holds ly
+# rounded up to a multiple of them
+PACKED_COLS = 2
+
+
+def pair_route(lx: int, ly: int) -> str:
+    """sw_pair's route for a bucket of lx x ly: "packed" while an H (at
+    most min(lx, ly)) fits an int16 half, "word32" while H and F + 6 fit
+    the 16-bit halves of the scalar scratch word, else "word64"."""
+    if min(lx, ly) <= PACKED_MAX:
+        return "packed"
+    return "word64" if wide_word(lx, ly) else "word32"
+
+
+def pair_scratch_bytes(lx: int, ly: int, route: str) -> int:
+    """Scratch bytes of one problem of sw_pair on `route`, per column 4
+    (half of a packed pair's 8-byte (G, F) words, over ly rounded up to
+    PACKED_COLS columns; or the scalar (H, F + 6) word) or, on word64, 8;
+    none when the read fits one strip."""
+    if lx <= (PACKED_STRIP if route == "packed" else PAIR_STRIP):
         return 0
-    return (2 if banded else 1) * ly * (8 if wide_word(lx, ly) else 4)
+    if route == "packed":
+        return 4 * (-(-ly // PACKED_COLS) * PACKED_COLS)
+    return (8 if route == "word64" else 4) * ly
+
+
+def dp_scratch_bytes(lx: int, ly: int, banded: bool = False) -> int:
+    """Scratch bytes of one (read, haplotype) problem of sw_pair on its
+    route (pair_scratch_bytes) or, banded, of sw_banded (2 ly words: two
+    buffers alternate by strip); none when the read fits one strip."""
+    if not banded:
+        return pair_scratch_bytes(lx, ly, pair_route(lx, ly))
+    if lx <= BANDED_STRIP:
+        return 0
+    return 2 * ly * (8 if wide_word(lx, ly) else 4)
 
 
 def read_ranges(n_reads: int, lx: int, ly: int, per_read: int, budget: int,
-                banded: bool = False) -> List[Tuple[int, int]]:
+                banded: bool = False,
+                route: Optional[str] = None) -> List[Tuple[int, int]]:
     """Read ranges [r0, r1) of one DP launch, in order and covering every
     read, each taking at most `budget` bytes of scratch (per_read problems
-    per read, dp_scratch_bytes each) unless one read alone takes more."""
-    need = per_read * dp_scratch_bytes(lx, ly, banded)
+    per read, dp_scratch_bytes each, or sw_pair's pair_scratch_bytes on a
+    given route) unless one read alone takes more. sw_pair's packed route
+    runs an odd range of plain rows (per_read == 1) with one empty problem
+    more (pair_scratch_problems)."""
+    need = per_read * (dp_scratch_bytes(lx, ly, banded) if route is None
+                       else pair_scratch_bytes(lx, ly, route))
     step = max(1, budget // need) if need else max(1, n_reads)
     return [(r0, min(r0 + step, n_reads)) for r0 in range(0, n_reads, step)]
 
 
-def _scratch(ranges: List[Tuple[int, int]], per_problem: int, per_read: int,
+def pair_scratch_problems(ranges: List[Tuple[int, int]], per_read: int,
+                          route: str) -> int:
+    """Problems that sw_pair's scratch for `ranges` holds: those of the
+    largest range (the first), rounded up to pairs on the packed route."""
+    n = (ranges[0][1] - ranges[0][0]) * per_read
+    return n + n % 2 if route == "packed" else n
+
+
+def _scratch(n_problems: int, per_problem: int,
              dev: torch.device) -> Optional[torch.Tensor]:
-    """One scratch buffer for the largest of `ranges` (the first), reused
-    by each launch in stream order; None when no problem needs any."""
+    """One scratch buffer of n_problems, reused by each launch in stream
+    order; None when no problem needs any."""
     if not per_problem:
         return None
-    n = (ranges[0][1] - ranges[0][0]) * per_read * per_problem
-    return torch.empty(n, dtype=torch.uint8, device=dev)
+    return torch.empty(n_problems * per_problem, dtype=torch.uint8,
+                       device=dev)
 
 
 def _output(R: int, per_read: int, codes: bool, dev: torch.device):
@@ -177,8 +227,11 @@ def _output(R: int, per_read: int, codes: bool, dev: torch.device):
 
 def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             hap_mat: torch.Tensor, idx_ref: torch.Tensor,
-            idx_alt: torch.Tensor, per_read: int, codes: bool) -> torch.Tensor:
-    """Validate, allocate and launch on the current stream."""
+            idx_alt: torch.Tensor, per_read: int, codes: bool,
+            route: Optional[str] = None) -> torch.Tensor:
+    """Validate, allocate and launch on the current stream; route: one of
+    PAIR_ROUTES (default pair_route(lx, ly)); the kernel refuses a route
+    that cannot hold min(lx, ly)."""
     global LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
@@ -195,12 +248,16 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             raise ValueError("read_lens must have one entry per read")
     if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
         raise ValueError("idx_ref and idx_alt must have one entry per read")
+    route = pair_route(lx, ly) if route is None else route
+    if route not in PAIR_ROUTES:
+        raise ValueError(f"route must be one of {PAIR_ROUTES}, got {route!r}")
     lib = _kernel()
     out, scores_ptr, codes_ptr = _output(R, per_read, codes, dev)
-    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES)
+    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES, route=route)
     if not ranges:
         return out
-    scratch = _scratch(ranges, dp_scratch_bytes(lx, ly), per_read, dev)
+    scratch = _scratch(pair_scratch_problems(ranges, per_read, route),
+                       pair_scratch_bytes(lx, ly, route), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     row_bytes = reads.shape[1]
     for r0, r1 in ranges:
@@ -212,9 +269,9 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             scores_ptr + 4 * r0 if scores_ptr else None, R,
             codes_ptr + r0 if codes_ptr else None,
             None if scratch is None else scratch.data_ptr(),
-            int(wide_word(lx, ly)), stream)
+            PAIR_ROUTES.index(route), stream)
         if err != 0:
-            raise RuntimeError("sw_pair kernel launch failed: "
+            raise RuntimeError(f"sw_pair kernel launch failed ({route}): "
                                + lib.sw_pair_error_string(err).decode())
         LAUNCHES += 1
     return out
@@ -222,25 +279,31 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
 
 def pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
                 idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-                read_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                read_lens: Optional[torch.Tensor] = None, *,
+                route: Optional[str] = None) -> torch.Tensor:
     """int32 [2, R] (ref, alt) scores. reads: uint8 [R, lx] (pad 0), or
     [R, lx//4] 2-bit codes with int32 read_lens [R]; hap_mat: uint8
-    [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat."""
+    [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat. route
+    (the kernel only): one of PAIR_ROUTES in place of pair_route(lx, ly),
+    for measurements."""
     if reads.device.type == "cpu":
         return sw_torch.pair_scores(reads, hap_mat, idx_ref, idx_alt,
                                     read_lens)
-    return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, False)
+    return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, False,
+                   route)
 
 
 def pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
                idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-               read_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+               read_lens: Optional[torch.Tensor] = None, *,
+               route: Optional[str] = None) -> torch.Tensor:
     """int8 [R] call codes of each read's (ref, alt) scores: 0 dropped
     (both below MIN_SCORE), 1 REF, 2 ALT, 3 tie. Arguments as pair_scores."""
     if reads.device.type == "cpu":
         return sw_torch.pair_calls(reads, hap_mat, idx_ref, idx_alt,
                                    read_lens)
-    return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, True)
+    return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, True,
+                   route)
 
 
 def batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -282,7 +345,8 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
     ranges = read_ranges(R, lx, ly, 2, DP_SCRATCH_BYTES, banded=True)
     if not ranges:
         return out
-    scratch = _scratch(ranges, dp_scratch_bytes(lx, ly, True), 2, dev)
+    scratch = _scratch(2 * (ranges[0][1] - ranges[0][0]),
+                       dp_scratch_bytes(lx, ly, True), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for r0, r1 in ranges:
         # problems 2 r0 .. 2 r1 - 1: columns of the bounds, 4 bytes each
