@@ -33,9 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      homopolymer locus at ly=4032 whose matches need several chain-pass
      ranges and on the 65,602-base reads. sw_banded: scores and codes on
      those bounds against its plain version. A 100,000-base haplotype pair
-     (a deletion alt) against 2,048 reads, under scratch budgets small
-     enough that band_build, sw_banded and sw_pair each run several
-     ranges, against the plain versions and the host reference;
+     (a deletion alt) against 1,024 reads (2,048 until the sparse phase
+     came, cut for time), under 32 MiB scratch budgets, small enough that
+     band_build, sw_banded and sw_pair each run several ranges, against
+     the plain versions and the host reference;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
      CUDA events: each kernel, its plain version, and its bound at the
      card's instruction issue rate against its bytes. The DP kernels'
@@ -51,11 +52,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. end to end: a seeded 500,000-read dataset (generated in a worker
      process while phase 3 runs) through the driver in
      --sw-mode full and banded, each with --backend cuda in the three
-     scoring modes, each repeated with --backend torch; matrices must agree,
+     scoring modes, each repeated with --backend torch (banded: consensus
+     only, for time); matrices must agree,
      each mode's kernels must have launched on its cuda runs and never on
      the torch runs, the other mode's never, the index once per shape
-     bucket, and the host band reference never. The CLI entry (python -m
-     vartrix_tpu_torch) runs on a small dataset in both modes.
+     bucket, and the host band reference never. The full consensus cuda
+     run writes a --profile-dir trace, read for the card's idle share in
+     `score` (vartrix_tpu_torch.utils.trace); it must hold every sw_pair
+     launch. The CLI entry (python -m vartrix_tpu_torch) runs on a small
+     dataset in both modes;
+  6. input and run control: a sparse whole-genome-like dataset (16 x 4 Mb,
+     400 variants, ~1.4 M reads, a BAM over --fetch auto's 64 MiB
+     threshold; generated in a second worker process from phase 3), each
+     run `python -m vartrix_tpu_torch` in a process of its own that
+     reports its peak RSS: --fetch whole (cuda, and torch: the plain
+     version), auto (must take regions), regions (full and banded),
+     --stream 50 (full with a trace of the `stream` phase, banded, and
+     coverage + umi), the VCF as BCF, --num-shards 4 merged by python -m
+     vartrix_tpu_torch.parallel.multihost, a .bai rebuilt by python -m
+     vartrix_tpu_torch.io.bai, --checkpoint-dir twice (the rerun launches
+     sw_pair 0 times); every matrix CSR-equal to its mode's --fetch whole
+     run; and in-process the bounded-memory loader forced on against the
+     monolithic load, column by column.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -238,6 +256,41 @@ extern "C" int dpx_rate_launch(const void* in, int iters, int blocks,
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
+# phase 6: a sparse whole-genome-like dataset, bench.py COHORT_CFG's genome
+# (16 x 4 Mb) with ~6 variants and ~20,000 background reads per Mb
+SPARSE_CFG = dict(n_chroms=16, chrom_len=4_000_000, n_variants=400,
+                  n_cells=5000, reads_per_variant=250,
+                  background_reads=1_300_000, spliced_frac=0.3, seed=2026)
+SPARSE_WINDOW = 50  # --stream N of phase 6
+# runs `python -m vartrix_tpu_torch ARGS` in a process of its own and prints
+# to its stderr the process's peak RSS (ru_maxrss), which start-up (torch,
+# the CUDA context, sw_pair's library) sets on the card's machine, and the
+# RSS once that start-up is done and its peak over the run, sampled from
+# /proc/self/statm every 5 ms on a thread of its own
+RSS_WRAPPER = (
+    "import resource, runpy, sys, threading, torch\n"
+    "from vartrix_tpu_torch.ops import sw_cuda\n"
+    "if torch.cuda.is_available():\n"
+    "    torch.zeros(1, device='cuda')\n"
+    "    sw_cuda._kernel()\n"
+    "def rss():\n"
+    "    with open('/proc/self/statm') as f:\n"
+    "        return int(f.read().split()[1]) * resource.getpagesize() // 1024\n"
+    "start = peak = rss()\n"
+    "done = threading.Event()\n"
+    "def sample():\n"
+    "    global peak\n"
+    "    while not done.wait(0.005):\n"
+    "        peak = max(peak, rss())\n"
+    "threading.Thread(target=sample, daemon=True).start()\n"
+    "try:\n"
+    "    runpy.run_module('vartrix_tpu_torch', run_name='__main__', "
+    "alter_sys=True)\n"
+    "finally:\n"
+    "    done.set()\n"
+    "    print('peak_rss_kb', resource.getrusage(resource.RUSAGE_SELF)"
+    ".ru_maxrss, 'start_rss_kb', start, 'run_peak_rss_kb',\n"
+    "          max(peak, rss()), file=sys.stderr)\n")
 
 
 def log(msg):
@@ -437,8 +490,8 @@ def wide_full_family(rng, n_reads=4, n=65600, ly=70000):
     return x, np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
 
 
-def long_hap_family(rng, n_reads=2048, lx=160, ly=100_000):
-    """2,048 reads of 140-150 bases (1 % errors) sampled from a
+def long_hap_family(rng, n_reads=1024, lx=160, ly=100_000):
+    """1,024 reads of 140-150 bases (1 % errors) sampled from a
     100,000-base haplotype and from its alt, the same with 50 bases
     deleted at base 50,000: a long deletion locus, whose DP scratch
     (ly words per problem) and band scratch (thousands of chance 6-mer
@@ -1132,7 +1185,7 @@ def check_wide_banded(rng, threads):
 
 
 def check_long_hap(rng, threads):
-    """long_hap_family under 64 MiB scratch budgets: band_index once,
+    """long_hap_family under 32 MiB scratch budgets: band_index once,
     band_build (several chain-pass ranges) against the plain version and
     the host reference, sw_banded (scores and codes) and sw_pair (scores)
     over several read ranges against their plain versions. Returns (max
@@ -1145,7 +1198,7 @@ def check_long_hap(rng, threads):
     x, haps, ir, ia = long_hap_family(rng)
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     saved = sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES
-    sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 64 << 20
+    sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 32 << 20
     try:
         n0 = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
               sw_cuda.BAND_LAUNCHES)
@@ -1551,7 +1604,8 @@ def generate_e2e(work):
 
 def phase_e2e(work, data):
     """Both paths, full then banded, each in the three modes with --backend
-    cuda and then torch, on generate_e2e's dataset. Every kernel's count is
+    cuda and then torch (banded torch: consensus only, the plain banded
+    version being slow), on generate_e2e's dataset. Every kernel's count is
     zeroed just before each (path, backend) group and read just after;
     returns the launches of the full path's cuda runs (sw_pair) and the
     banded path's (sw_banded, band_build, band_index). The host band
@@ -1592,6 +1646,9 @@ def phase_e2e(work, data):
             sw_cuda.BAND_LAUNCHES = sw_cuda.INDEX_LAUNCHES = 0
             buckets[0] = 0
             for mode, mode_args in modes.items():
+                if (sw_mode, be) == ("banded", "torch") and \
+                        mode != "consensus":
+                    continue  # the plain banded runs: one mode, for time
                 tag = f"{sw_mode}_{mode}_{be}"
                 out = os.path.join(work, f"{tag}.mtx")
                 ref = os.path.join(work, f"{tag}_ref.mtx")
@@ -1601,11 +1658,19 @@ def phase_e2e(work, data):
                         "--ref-matrix", ref, "--sw-mode", sw_mode,
                         "--threads", str(os.cpu_count() or 1),
                         "--metrics-json", mj] + mode_args + be_args
+                profiled = tag == "full_consensus_cuda"
+                prof = os.path.join(work, f"{tag}_trace")
+                if profiled:
+                    argv += ["--profile-dir", prof]
                 t0 = time.perf_counter()
                 driver._main(argv)
                 dt = time.perf_counter() - t0
                 with open(mj) as f:
                     payload = json.load(f)
+                if profiled:
+                    log(f"e2e {tag} ran under --profile-dir")
+                    read_trace(os.path.join(prof, "score.pt.trace.json"),
+                               "score", payload["kernel_launches"]["sw_pair"])
                 shape = payload["matrix"]["shape"]
                 if shape != [E2E_CFG["n_variants"], E2E_CFG["n_cells"]]:
                     fail(f"{tag}: matrix shape {shape}")
@@ -1629,6 +1694,8 @@ def phase_e2e(work, data):
                     fail(f"--sw-mode {sw_mode} --backend {be}: {name} "
                          f"launched {n} times")
         for mode in modes:
+            if (sw_mode, mode, "torch") not in outs:
+                continue
             a, b = outs[sw_mode, mode, "cuda"], outs[sw_mode, mode, "torch"]
             ok = csr_equal(a[0], b[0])
             if mode == "coverage_umi":
@@ -1688,6 +1755,253 @@ def phase_cli(work):
                  "CPU plain run")
 
 
+def read_trace(path, phase, sw_pair_launches):
+    """The device's idle share in a profiled phase, from the port's chrome
+    trace (vartrix_tpu_torch.utils.trace): the window is the phase's span,
+    busy time the union of kernel, memcpy and memset intervals. Fails when
+    the trace holds no sw_pair kernel or fewer than the run launched."""
+    from vartrix_tpu_torch.utils import trace
+
+    s = trace.device_summary(trace.load_events(path), phase)
+    log(f"trace {phase}: window {s['window_us'] / 1e3:.3f} ms, device busy "
+        f"{s['busy_us'] / 1e3:.3f} ms, idle share {s['idle_share']:.4f}")
+    for name, k in sorted(s["kernels"].items(), key=lambda kv: -kv[1]["us"]):
+        short = re.sub(r"\((?!anonymous)[^()]*\)$", "", name)
+        log(f"trace {phase}:   kernel {short}: {k['n']} launches, "
+            f"{k['us'] / 1e3:.4f} ms")
+    for d, c in sorted(s["copies"].items()):
+        log(f"trace {phase}:   memcpy {d}: {c['n']} copies, "
+            f"{c['us'] / 1e3:.4f} ms, {c['bytes']} bytes")
+    log(f"trace {phase}:   memset {s['memset_us'] / 1e3:.4f} ms")
+    n = trace.kernel_count(s, "sw_pair")
+    if n == 0 or n < sw_pair_launches:
+        fail(f"the {phase} trace holds {n} sw_pair kernels, the run "
+             f"launched {sw_pair_launches}")
+    return s
+
+
+def generate_sparse(work):
+    """Phase 6's dataset (a second worker process during phase 3): (the
+    dataset's paths and read count, seconds taken)."""
+    from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
+
+    t0 = time.perf_counter()
+    data = generate_dataset(os.path.join(work, "sparse"),
+                            SynthConfig(**SPARSE_CFG))
+    data.pop("genotypes")
+    return data, time.perf_counter() - t0
+
+
+def run_vartrix(work, tag, argv, rows):
+    """`python -m vartrix_tpu_torch` in a process of its own (RSS_WRAPPER):
+    its metrics payload and stderr. Appends (tag, wall s, phase seconds,
+    records decoded, strategy, peak RSS MiB, peak after start-up) to
+    rows."""
+    mj = os.path.join(work, f"{tag}.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", RSS_WRAPPER, *argv,
+                        "--metrics-json", mj, "--log-level", "info"],
+                       cwd=HERE, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        log(r.stdout[-4000:])
+        log(r.stderr[-4000:])
+        fail(f"phase 6 {tag}: exit code {r.returncode}")
+    m = re.search(r"peak_rss_kb (\d+) start_rss_kb (\d+) run_peak_rss_kb "
+                  r"(\d+)", r.stderr)
+    rss, start, run_peak = (int(m.group(i)) / 1024 for i in (1, 2, 3))
+    decoded = re.findall(r"Decoded (\d+) records \(strategy: ([^)]+)\)",
+                         r.stderr)
+    if len(decoded) != 1:
+        fail(f"phase 6 {tag}: no single decode line in the log")
+    n, strategy = int(decoded[0][0]), decoded[0][1]
+    with open(mj) as f:
+        payload = json.load(f)
+    after = f"{run_peak:.1f} MiB from {start:.1f} MiB at start-up"
+    log(f"sparse {tag}: wall {wall:.3f} s, phases "
+        f"{payload['phase_seconds']}, records decoded {n} ({strategy}), "
+        f"peak RSS {rss:.1f} MiB, sampled after start-up {after}, launches "
+        f"{payload['kernel_launches']}")
+    rows.append((tag, wall, payload["phase_seconds"], n, strategy, rss,
+                 after))
+    return payload, r.stderr
+
+
+def baseline_rss():
+    """Peak RSS (MiB) of a process that imports torch, creates the CUDA
+    context and loads sw_pair's library, and does nothing else: the floor
+    under every phase-6 run's."""
+    code = ("import resource, torch\n"
+            "from vartrix_tpu_torch.ops import sw_cuda\n"
+            "torch.zeros(1, device='cuda')\n"
+            "sw_cuda._kernel()\n"
+            "print(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=HERE, check=True,
+                       capture_output=True, text=True, timeout=300)
+    return int(r.stdout.split()[-1]) / 1024
+
+
+def check_columns_bounded(bam, threads):
+    """The bounded-memory whole-file loader forced on (threshold 0, 16 MiB
+    segments) against the monolithic load: every column equal."""
+    import numpy as np
+
+    from vartrix_tpu_torch.io import bam_native
+
+    t0 = time.perf_counter()
+    mono = bam_native.ColumnarBam(bam, b"CB", threads)
+    t1 = time.perf_counter()
+    saved = bam_native.STREAM_DECODE_BYTES, bam_native.STREAM_SEGMENT_BYTES
+    bam_native.STREAM_DECODE_BYTES = 0
+    bam_native.STREAM_SEGMENT_BYTES = 16 << 20
+    try:
+        bounded = bam_native.ColumnarBam(bam, b"CB", threads)
+    finally:
+        bam_native.STREAM_DECODE_BYTES, bam_native.STREAM_SEGMENT_BYTES = saved
+    t2 = time.perf_counter()
+    if (mono.loader, bounded.loader) != ("whole", "bounded"):
+        fail(f"loaders taken: {mono.loader}, {bounded.loader}")
+    same = mono.n == bounded.n and all(
+        np.array_equal(getattr(mono, c), getattr(bounded, c))
+        for c in ("tid", "pos", "ref_end", "mapq", "flag", "seq_off",
+                  "seq_pool", "itv_off", "itv_pool", "cb_off", "cb_pool",
+                  "ub_off", "ub_pool"))
+    log(f"sparse bounded loader (16 MiB segments) vs monolithic: {mono.n} "
+        f"records, {t2 - t1:.3f} s vs {t1 - t0:.3f} s, every column equal: "
+        f"{same}")
+    if not same:
+        fail("the bounded-memory loader's columns differ from the "
+             "monolithic load's")
+
+
+def phase_sparse(work, data, device_args=("--backend", "cuda"),
+                 plain_args=("--backend", "torch", "--device", "cuda")):
+    """Phase 6: the input and run-control surface on a sparse dataset, each
+    run its own process. Every matrix must be CSR-equal to its mode's
+    --fetch whole run, which is CSR-equal to the plain version's."""
+    from vartrix_tpu_torch.driver import AUTO_REGION_BYTES
+    from vartrix_tpu_torch.io.bcf import write_bcf
+    from vartrix_tpu_torch.io.vcf import read_vcf_records
+
+    size = os.path.getsize(data["bam"])
+    log(f"sparse: {data['n_reads']} reads, BAM {size} bytes "
+        f"({size / 2 ** 20:.1f} MiB), {SPARSE_CFG['n_variants']} variants")
+    if size < AUTO_REGION_BYTES:
+        fail(f"the sparse BAM is under --fetch auto's {AUTO_REGION_BYTES} "
+             "byte threshold")
+    threads = str(os.cpu_count() or 1)
+    base = ["-f", data["fasta"], "-c", data["barcodes"], "--threads", threads]
+    rows = []
+
+    def run(tag, *extra, vcf=data["vcf"], bam=data["bam"], dev=device_args):
+        out = os.path.join(work, f"sp_{tag}.mtx")
+        argv = ["-v", vcf, "-b", bam, *base, "-o", out, "--ref-matrix",
+                os.path.join(work, f"sp_{tag}_ref.mtx"), *dev, *extra]
+        payload, err = run_vartrix(work, f"sp_{tag}", argv, rows)
+        kernels = ("sw_banded" if "banded" in extra else "sw_pair")
+        if "torch" not in dev and payload["kernel_launches"][kernels] == 0 \
+                and "--checkpoint-dir" not in extra:
+            fail(f"phase 6 {tag}: {kernels} never launched")
+        return out, payload, err
+
+    def same(tag, a, b, ref=False):
+        ok = csr_equal(a, b)
+        if ref:
+            ok = ok and csr_equal(a[:-4] + "_ref.mtx", b[:-4] + "_ref.mtx")
+        log(f"sparse {tag}: CSR-equal to its baseline: {ok}")
+        if not ok:
+            fail(f"phase 6 {tag}: the matrix differs from its baseline")
+
+    base_rss = baseline_rss()
+    log(f"sparse baseline: a process that imports torch, creates the CUDA "
+        f"context and loads sw_pair's library peaks at {base_rss:.1f} MiB")
+    whole, w_pl, _ = run("whole", "--fetch", "whole")
+    plain, _, _ = run("whole_torch", "--fetch", "whole", dev=plain_args)
+    same("whole_torch (the plain version)", plain, whole)
+    auto, a_pl, a_err = run("auto")
+    if a_pl["config"]["fetch"] != "auto" or \
+            "(strategy: regions)" not in a_err:
+        fail("--fetch auto did not take regions on the sparse dataset")
+    same("auto", auto, whole)
+    regions, _, _ = run("regions", "--fetch", "regions")
+    same("regions", regions, whole)
+    b_whole, _, _ = run("banded_whole", "--sw-mode", "banded", "--fetch",
+                        "whole")
+    b_regions, _, _ = run("banded_regions", "--sw-mode", "banded", "--fetch",
+                          "regions")
+    same("banded_regions", b_regions, b_whole)
+    stream, _, _ = run("stream", "--stream", str(SPARSE_WINDOW))
+    same("stream", stream, whole)
+    prof = os.path.join(work, "sp_stream_trace")
+    p_stream, s_pl, _ = run("stream_profiled", "--stream",
+                            str(SPARSE_WINDOW), "--profile-dir", prof)
+    same("stream_profiled", p_stream, whole)
+    if "torch" not in device_args:
+        read_trace(os.path.join(prof, "stream.pt.trace.json"), "stream",
+                   s_pl["kernel_launches"]["sw_pair"])
+    b_stream, _, _ = run("banded_stream", "--sw-mode", "banded", "--stream",
+                         str(SPARSE_WINDOW))
+    same("banded_stream", b_stream, b_whole)
+    cov = ("-s", "coverage", "--umi")
+    c_whole, _, _ = run("cov_umi_whole", *cov, "--fetch", "whole")
+    c_stream, _, _ = run("cov_umi_stream", *cov, "--stream",
+                         str(SPARSE_WINDOW))
+    same("cov_umi_stream", c_stream, c_whole, ref=True)
+
+    bcf = os.path.join(work, "sparse.bcf")
+    write_bcf(bcf, [(c, SPARSE_CFG["chrom_len"]) for c in data["chroms"]],
+              read_vcf_records(data["vcf"]))
+    b_out, _, _ = run("bcf_auto", "--fetch", "auto", vcf=bcf)
+    same("bcf_auto", b_out, whole)
+
+    parts = [run(f"shard{i}", "--num-shards", "4", "--shard-index",
+                 str(i))[0] for i in range(4)]
+    merged = os.path.join(work, "sp_merged.mtx")
+    subprocess.run([sys.executable, "-m",
+                    "vartrix_tpu_torch.parallel.multihost", merged, *parts],
+                   cwd=HERE, check=True, timeout=300)
+    same("4 shards merged", merged, whole)
+
+    reindex = os.path.join(work, "reindex")
+    os.makedirs(reindex)
+    bam2 = os.path.join(reindex, "reads.bam")
+    os.link(data["bam"], bam2)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "vartrix_tpu_torch.io.bai", bam2],
+                   cwd=HERE, check=True, timeout=600, capture_output=True)
+    with open(bam2 + ".bai", "rb") as f, open(data["bam"] + ".bai", "rb") as g:
+        same_bai = f.read() == g.read()
+    log(f"sparse: python -m vartrix_tpu_torch.io.bai rebuilt the .bai in "
+        f"{time.perf_counter() - t0:.1f} s, equal to the written one: "
+        f"{same_bai}")
+    if not same_bai:
+        fail("the rebuilt .bai differs from the one written with the BAM")
+    r_out, _, _ = run("reindexed_regions", "--fetch", "regions", bam=bam2)
+    same("reindexed_regions", r_out, whole)
+
+    ck = os.path.join(work, "sp_ck")
+    ck1, c1, _ = run("checkpoint1", "--checkpoint-dir", ck)
+    ck2, c2, err2 = run("checkpoint2", "--checkpoint-dir", ck)
+    n1, n2 = (c["kernel_launches"]["sw_pair"] for c in (c1, c2))
+    with open(ck1, "rb") as f, open(ck2, "rb") as g:
+        same_bytes = f.read() == g.read()
+    log(f"sparse checkpoint: sw_pair launches {n1} then {n2}, second "
+        f"matrix byte-equal to the first: {same_bytes}")
+    if "torch" not in device_args and (n1 == 0 or n2 != 0):
+        fail("the checkpoint rerun launched sw_pair")
+    if "variants loaded, 0 scored" not in err2 or not same_bytes:
+        fail("the checkpoint rerun scored variants or wrote another matrix")
+    same("checkpoint2", ck2, whole)
+
+    check_columns_bounded(data["bam"], int(threads))
+    log("sparse table: run | wall s | phase seconds | records decoded "
+        "(strategy) | peak RSS MiB | sampled peak RSS after start-up")
+    for tag, wall, phases, n, strategy, rss, after in rows:
+        log(f"sparse table: {tag} | {wall:.3f} | "
+            + ", ".join(f"{k} {v}" for k, v in phases.items())
+            + f" | {n} ({strategy}) | {rss:.1f} | {after}")
+
+
 def main():
     if not os.path.exists(os.path.join(HERE, "vartrix_tpu_torch",
                                        "__init__.py")):
@@ -1717,8 +2031,9 @@ def main():
     os.makedirs(work)
     try:
         with ProcessPoolExecutor(
-                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+                2, mp_context=multiprocessing.get_context("spawn")) as pool:
             e2e_data = pool.submit(generate_e2e, work)
+            sparse_data = pool.submit(generate_sparse, work)
             finish_wide = start_wide_pair(rng)
             worst = phase_equality(rng)
             done("sw_pair equality")
@@ -1727,15 +2042,22 @@ def main():
             worst = max(worst, finish_wide())
             done("banded equality")
             data, gen_s = e2e_data.result()
-        log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in a "
-            "worker process, during phase 3)")
-        timing = phase_timing(rng, sass, clock_hz, paths[-1])
-        band_timing, banded_timing, index_timing = phase_banded_timing(
-            rng, sass, clock_hz, threads)
-        done("timing")
+            log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in "
+                "a worker process, during phase 3)")
+            timing = phase_timing(rng, sass, clock_hz, paths[-1])
+            band_timing, banded_timing, index_timing = phase_banded_timing(
+                rng, sass, clock_hz, threads)
+            done("timing")
+            t0 = time.perf_counter()
+            sparse, sparse_s = sparse_data.result()
+        log(f"sparse: generated {sparse['n_reads']} reads in {sparse_s:.1f}s "
+            f"(in a second worker process, from phase 3; waited "
+            f"{time.perf_counter() - t0:.1f}s after phase 4)")
         launches = phase_e2e(work, data)
         done("e2e")
         phase_cli(work)
+        phase_sparse(work, sparse)
+        done("sparse")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sw_note = "no PyTorch call computes Smith-Waterman"

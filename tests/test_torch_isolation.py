@@ -91,17 +91,24 @@ def test_cuda_backend_on_cpu_refused(tmp_path, data):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--host", "python"], ["--stream", "2"], ["--fetch", "regions"],
-    ["--device-agg"], ["--mesh-devices", "2"],
-    ["--distributed", "localhost:1234,2,0"], ["--checkpoint-dir", "ck"],
-    ["--profile-dir", "prof"],
+    ["--host", "python"], ["--device-agg"], ["--mesh-devices", "2"],
+    ["--distributed", "localhost:1234,2,0"], ["CRAM input"],
 ], ids=lambda a: a[0])
 def test_unported_options_exit(tmp_path, data, extra, caplog):
+    argv = _argv(data, tmp_path, "--device", "cpu", "--backend", "torch")
+    if extra == ["CRAM input"]:
+        # a stub CRAM with its index: refused by content before any decode
+        cram = tmp_path / "reads.cram"
+        cram.write_bytes(b"CRAM\x03\x00")
+        (tmp_path / "reads.cram.crai").write_bytes(b"")
+        argv[argv.index("-b") + 1] = str(cram)
+    else:
+        argv += extra
     with pytest.raises(SystemExit) as e:
-        driver._main(_argv(data, tmp_path, "--device", "cpu", "--backend",
-                           "torch", *extra))
+        driver._main(argv)
     assert e.value.code != 0
     assert "not yet ported" in caplog.text
+    assert extra[0] in caplog.text
     assert not (tmp_path / "o.mtx").exists()
 
 

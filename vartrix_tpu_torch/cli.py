@@ -4,7 +4,9 @@ Mirrors the reference CLI exactly: same 18 flags, same short names, same
 defaults, same choices (reference src/main.rs:40-135), plus the framework
 flags of vartrix_tpu's CLI. --device and --backend choose where and how
 the Smith-Waterman scores are computed. Flags whose path this package has
-not ported yet are accepted and refused by the driver with a message.
+not ported yet (--host python, --device-agg, --mesh-devices,
+--distributed; CRAM input) are accepted and refused by the driver with a
+message.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--version", action="version", version=f"vartrix {__version__}")
     p.add_argument("-v", "--vcf", metavar="FILE", required=True,
-                   help="Called variant file (VCF)")
+                   help="Called variant file (VCF, or BCF)")
     p.add_argument("-b", "--bam", metavar="FILE", required=True,
                    help="Cellranger BAM file")
     p.add_argument("-f", "--fasta", metavar="FILE", required=True,
@@ -95,19 +97,24 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="BAM read strategy: decode the whole file (fastest "
                         "for dense variant sets) or only the BAI/CSI-indexed "
-                        "regions overlapping variants ('regions' is not yet "
-                        "ported; 'auto' decodes the whole file)")
+                        "regions overlapping variants. 'auto' plans the "
+                        "regions for BAMs of 64 MiB or more and takes them "
+                        "when they cover under half the file; 'regions' "
+                        "needs a usable index")
     p.add_argument("--stream", metavar="N_VARIANTS", type=int, default=0,
                    help="window the decode->collect->score pipeline over "
                         "contiguous groups of N variants via the BAI region "
                         "plan: peak memory is bounded to one window and the "
                         "next window's decode overlaps the current window's "
                         "scoring. Outputs are identical to the monolithic "
-                        "path. 0 (default) = off; requires an index and a "
-                        "BAM input (not yet ported)")
+                        "path. 0 (default) = off; needs a usable index "
+                        "(without one, or with --checkpoint-dir, the run is "
+                        "monolithic)")
     p.add_argument("--profile-dir", dest="profile_dir", metavar="DIR", default=None,
-                   help="Write a profiler trace of the scoring phase to "
-                        "this directory (not yet ported)")
+                   help="Write a torch.profiler chrome trace of the scoring "
+                        "phase (or of the --stream phase) to this directory: "
+                        "host activity, and the card's kernels and copies "
+                        "with --device cuda")
     p.add_argument("--metrics-json", dest="metrics_json", metavar="FILE",
                    default=None,
                    help="Write run metrics as JSON: the 9 reference "
@@ -116,8 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", metavar="DIR",
                    default=None,
                    help="Spill per-variant score blocks to this directory and "
-                        "resume from them on a rerun (long-run fault tolerance; "
-                        "not yet ported)")
+                        "resume from them on a rerun (long-run fault "
+                        "tolerance). Keyed on the input files and the filter "
+                        "flags")
     p.add_argument("--mesh-devices", dest="mesh_devices", type=int, default=0,
                    metavar="N",
                    help="Shard scoring batches across N local accelerator "
@@ -130,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="N",
                    help="Distribute over N hosts/processes: this process "
                         "computes only its contiguous variant-row shard and "
-                        "writes a partial matrix")
+                        "writes a partial matrix; merge the partials with "
+                        "python -m vartrix_tpu_torch.parallel.multihost")
     p.add_argument("--shard-index", dest="shard_index", type=int, default=0,
                    metavar="I", help="This process's shard index in [0, N)")
     p.add_argument("--distributed", dest="distributed", metavar="ADDR:PORT,N,RANK",

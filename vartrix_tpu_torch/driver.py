@@ -2,9 +2,13 @@
 
 The run of the reference `_main` (reference src/main.rs:163-418) with the
 native host runtime: validate the inputs, build the haplotypes, decode the
-whole BAM into columns, filter and join reads to variants, score every
+BAM into columns (the whole file, or the chunks of one merged BAI/CSI
+region plan: --fetch), filter and join reads to variants, score every
 (read, haplotype) pair on the device, aggregate the call codes and write
-the matrices. Callable in-process (`_main(argv)`) for tests.
+the matrices. --stream N windows decode, collect and score over groups of
+N variants; --checkpoint-dir keeps each variant's codes for a rerun;
+--profile-dir writes a torch.profiler trace of the scoring phase. Callable
+in-process (`_main(argv)`) for tests.
 
 Scoring runs on --device (default cuda) with --backend cuda (the
 hand-written kernel, default) or torch (the plain PyTorch version), in
@@ -19,8 +23,9 @@ import logging
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,16 +34,26 @@ from .cli import build_parser
 from .core import agg_numpy
 from .core.fast_pipeline import collect_reads_fast, score_all_fast
 from .core.pipeline import PipelineArgs, prepare_variants
+from .io.bai import plan_region_fetch
 from .io.bam import BamHeader
 from .io.bam_native import ColumnarBam
 from .io.barcodes import load_barcodes, write_barcodes
 from .io.fasta import FastaIndex, IndexedFasta
 from .io.matrix_market import TriMat, write_matrix_market
-from .io.vcf import is_bcf, iter_vcf_records, read_vcf_records
+from .io.vcf import iter_vcf_records, read_vcf_records
 from .ops import sw_cuda
+from .parallel.multihost import shard_range
 from .utils.metrics import Metrics, log_metrics
+from .utils.trace import span_name
 
 log = logging.getLogger("vartrix")
+
+# --fetch auto plans an indexed region decode only for BAMs of at least this
+# many bytes (planning a large VCF costs more than whole-file decode of a
+# small BAM can save), and takes it when the plan covers under
+# AUTO_REGION_FRACTION of the file
+AUTO_REGION_BYTES = 64 * 1024 * 1024
+AUTO_REGION_FRACTION = 0.5
 
 
 def validate_output_path(p: str) -> None:
@@ -111,18 +126,6 @@ def write_variants(out_variants: str, vcf_file: str) -> None:
             f.write(f"{rec.chrom}_{rec.pos}\n")
 
 
-def shard_range(num_vars: int, num_shards: int, shard_index: int):
-    """Contiguous row range of a shard, by the reference's chunking rule
-    (chunk = max(num_vars // num_shards, 1))."""
-    if not (0 <= shard_index < num_shards):
-        raise ValueError(f"shard index {shard_index} outside [0, {num_shards})")
-    chunk = max(num_vars // num_shards, 1)
-    lo = min(chunk * shard_index, num_vars)
-    hi = (num_vars if shard_index == num_shards - 1
-          else min(chunk * (shard_index + 1), num_vars))
-    return lo, hi
-
-
 _PHASE_TIMES: Dict[str, float] = {}
 
 
@@ -139,21 +142,167 @@ def _phase(name: str):
         log.info("Phase %-12s %.2fs", name, dt)
 
 
+@contextmanager
+def _maybe_profile(profile_dir: Optional[str], device: str, phase: str):
+    """torch.profiler trace of a phase (CPU activity, and the card's with
+    --device cuda), written to profile_dir/<phase>.pt.trace.json. The phase
+    runs inside a record_function span (utils/trace.span_name) that marks
+    the trace's window. A trace that was asked for and cannot be written
+    raises."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        with record_function(span_name(phase)):
+            yield
+            if device == "cuda":
+                torch.cuda.synchronize()
+    path = os.path.join(profile_dir, f"{phase}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("Profiler trace of %s: %s", phase, path)
+
+
 def _not_ported(args) -> List[str]:
     """The requested options whose path this package does not have yet."""
     asked = {
         "--host python": args.host == "python",
-        "--stream": args.stream > 0,
-        "--fetch regions": args.fetch == "regions",
         "CRAM input": _is_cram(args.bam),
-        "BCF input": is_bcf(args.vcf),
         "--device-agg": args.device_agg,
         "--mesh-devices": args.mesh_devices != 0,
         "--distributed": args.distributed is not None,
-        "--checkpoint-dir": args.checkpoint_dir is not None,
-        "--profile-dir": args.profile_dir is not None,
     }
     return [k for k, v in asked.items() if v]
+
+
+def _loci(works) -> list:
+    return [(w.locus.chrom, w.locus.start, w.locus.end) for w in works]
+
+
+def plan_fetch(args, works, tid_by_name) -> Optional[list]:
+    """The merged chunk plan to decode, or None for the whole file.
+
+    --fetch whole and small BAMs under auto decode the whole file; auto
+    takes the region plan when it covers under AUTO_REGION_FRACTION of the
+    file, and keeps the whole file on an empty plan with live variants
+    (indistinguishable from a stub or foreign index). --fetch regions
+    takes any plan and exits 1 when no index is usable."""
+    if args.fetch == "whole" or (
+            args.fetch == "auto"
+            and os.path.getsize(args.bam) < AUTO_REGION_BYTES):
+        return None
+    loci = _loci(w for w in works if not w.skipped)
+    plan, frac = plan_region_fetch(args.bam, loci, tid_by_name)
+    if plan is not None and not plan and (args.fetch == "auto" or not loci):
+        plan = None
+    if plan is not None and (args.fetch == "regions"
+                             or frac < AUTO_REGION_FRACTION):
+        log.info("Fetch plan: %d merged chunks covering ~%.1f%% of the "
+                 "BAM (indexed region decode)", len(plan), 100 * frac)
+        return plan
+    if args.fetch == "regions":
+        log.error("--fetch regions requested but no usable BAM index")
+        sys.exit(1)
+    return None
+
+
+def _stream_score(args, pargs, works, cell_barcodes, backend, tid_by_name):
+    """Windowed decode->collect->score (--stream N): the live variants in
+    contiguous windows of N, each window's reads region-decoded through
+    its own index plan, collected, scored and freed, so peak memory holds
+    one window; window k+1 decodes on a producer thread while window k
+    scores on the device.
+
+    Outputs are identical to the monolithic path: a variant lives in
+    exactly one window, its window's plan covers every read overlapping
+    its locus (the plan of --fetch regions), and collect selects each
+    variant's candidates by (tid, pos) range, so extra reads a window's
+    chunks include never reach another variant. UMI ids stay consistent
+    within a variant because all its reads decode in its own window.
+
+    Returns (read_idx, cells_l, umis_l, per-variant codes, records
+    decoded) aligned to `works`, or None when no index is usable (the
+    caller runs monolithic)."""
+    V = len(works)
+    live = [i for i, w in enumerate(works) if not w.skipped]
+    windows = [live[k : k + args.stream]
+               for k in range(0, len(live), args.stream)]
+    read_idx = [np.zeros(0, np.int64)] * V
+    cells_l = [np.zeros(0, np.int32)] * V
+    umis_l = [np.zeros(0, np.int64)] * V
+    codes = [np.zeros(0, np.int8)] * V
+    if not windows:
+        return read_idx, cells_l, umis_l, codes, 0
+
+    def plan_of(win):
+        return plan_region_fetch(args.bam, _loci(works[i] for i in win),
+                                 tid_by_name)[0]
+
+    def decode(win, plan=None):
+        plan = plan_of(win) if plan is None else plan
+        if plan is None:
+            raise RuntimeError("BAM index became unusable mid-stream")
+        return ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                           max(args.threads, 1), chunks=plan)
+
+    first = plan_of(windows[0])
+    if first is None:
+        return None
+    n_records = 0
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(decode, windows[0], first)
+        for t, win in enumerate(windows):
+            cbam = fut.result()
+            if t + 1 < len(windows):
+                fut = ex.submit(decode, windows[t + 1])
+            n_records += cbam.n
+            sub = [works[i] for i in win]
+            ri, cl, ul = collect_reads_fast(cbam, sub, cell_barcodes, pargs)
+            sc = score_all_fast(cbam, sub, ri, backend)
+            for k, i in enumerate(win):
+                read_idx[i], cells_l[i], umis_l[i] = ri[k], cl[k], ul[k]
+                codes[i] = sc[k]
+            del cbam
+    log.info("Streamed %d variants over %d windows of <=%d",
+             len(live), len(windows), args.stream)
+    return read_idx, cells_l, umis_l, codes, n_records
+
+
+def _score_checkpointed(args, cbam, works, read_idx, backend):
+    """score_all_fast over the variants the checkpoint directory does not
+    hold yet; loads the rest (rows whose saved shape matches) and saves
+    what it scores. The key covers the inputs and the filter flags."""
+    from .core.checkpoint import ScoreCheckpoint, manifest_key
+
+    key = manifest_key(
+        [args.vcf, args.bam, args.fasta, args.cell_barcodes],
+        {"padding": args.padding, "mapq": args.mapq,
+         "primary": args.primary_alignments,
+         "duplicates": args.no_duplicates, "umi": args.umi,
+         "bam_tag": args.bam_tag, "valid_chars": args.valid_chars})
+    ckpt = ScoreCheckpoint(args.checkpoint_dir, key)
+    cached, todo = {}, []
+    for wi, w in enumerate(works):
+        arr = ckpt.load(w.row)
+        want = len(read_idx[wi])
+        # (n, 2) int32 scores or (n,) int8 fused call codes
+        if arr is not None and arr.shape in ((want, 2), (want,)):
+            cached[wi] = arr if arr.ndim == 1 else arr.astype(np.int32)
+        else:
+            todo.append(wi)
+    sub = score_all_fast(cbam, [works[i] for i in todo],
+                         [read_idx[i] for i in todo], backend)
+    for wi, arr in zip(todo, sub):
+        ckpt.save(works[wi].row, arr)
+        cached[wi] = arr
+    log.info("Checkpoint: %d variants loaded, %d scored",
+             len(works) - len(todo), len(todo))
+    return [cached[wi] for wi in range(len(works))]
 
 
 def select_backend(device: str, backend: str, sw_mode: str):
@@ -226,25 +375,62 @@ def _main(argv: List[str]) -> None:
                  args.shard_index, args.num_shards, *row_range)
 
     # the whole-file decode reads only the BAM and the haplotypes only the
-    # FASTA and VCF, so the decode runs on a worker thread meanwhile
-    from concurrent.futures import ThreadPoolExecutor
+    # FASTA and VCF, so once whole-file is settled (--fetch whole, or auto
+    # below AUTO_REGION_BYTES; no --stream) the decode runs on a worker
+    # thread meanwhile. A region plan needs the haplotypes' windows first.
+    early = None
+    if args.stream == 0 and (
+            args.fetch == "whole"
+            or (args.fetch == "auto"
+                and os.path.getsize(args.bam) < AUTO_REGION_BYTES)):
+        ex = ThreadPoolExecutor(max_workers=1)
+        early = ex.submit(ColumnarBam, args.bam, pargs.bam_tag.encode(),
+                          max(args.threads, 1))
+        ex.shutdown(wait=False)
+    with _phase("haplotypes"):
+        works = prepare_variants(records, fasta, pargs, row_range=row_range)
 
-    with ThreadPoolExecutor(max_workers=1) as ex:
-        decode = ex.submit(ColumnarBam, args.bam, pargs.bam_tag.encode(),
-                           max(args.threads, 1))
-        with _phase("haplotypes"):
-            works = prepare_variants(records, fasta, pargs,
-                                     row_range=row_range)
-        with _phase("decode"):  # the remaining wait
-            cbam = decode.result()
-
-    with _phase("collect"):
-        read_idx, cells_l, umis_l = collect_reads_fast(
-            cbam, works, cell_barcodes, pargs)
     launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
                 sw_cuda.BAND_LAUNCHES, sw_cuda.INDEX_LAUNCHES)
-    with _phase("score"):
-        per_variant_codes = score_all_fast(cbam, works, read_idx, backend)
+    streamed = None
+    if args.stream > 0:
+        if args.checkpoint_dir:
+            log.info("--stream is incompatible with --checkpoint-dir; "
+                     "running monolithic")
+        else:
+            # one phase spans the windows' decode, collect and score: they
+            # overlap by design, so separate timers would double-count
+            with _phase("stream"), _maybe_profile(args.profile_dir,
+                                                  args.device, "stream"):
+                streamed = _stream_score(args, pargs, works, cell_barcodes,
+                                         backend, bam.tid_by_name)
+            if streamed is None:
+                log.info("--stream requested but no usable BAM index; "
+                         "running monolithic")
+    if streamed is not None:
+        read_idx, cells_l, umis_l, per_variant_codes, n_records = streamed
+        log.info("Decoded %d records (strategy: stream windows)", n_records)
+    else:
+        chunks = None if early is not None else plan_fetch(
+            args, works, bam.tid_by_name)
+        with _phase("decode"):
+            # the early decode's timer measures only the remaining wait
+            cbam = (early.result() if early is not None else
+                    ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                                max(args.threads, 1), chunks=chunks))
+        log.info("Decoded %d records (strategy: %s)", cbam.n, cbam.loader)
+        with _phase("collect"):
+            read_idx, cells_l, umis_l = collect_reads_fast(
+                cbam, works, cell_barcodes, pargs)
+        with _phase("score"), _maybe_profile(args.profile_dir, args.device,
+                                             "score"):
+            if args.checkpoint_dir:
+                per_variant_codes = _score_checkpointed(
+                    args, cbam, works, read_idx, backend)
+            else:
+                per_variant_codes = score_all_fast(cbam, works, read_idx,
+                                                   backend)
+        del cbam
     launches = {"sw_pair": sw_cuda.LAUNCHES - launches[0],
                 "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1],
                 "band_build": sw_cuda.BAND_LAUNCHES - launches[2],
@@ -314,7 +500,7 @@ def _main(argv: List[str]) -> None:
                 "scoring_method": args.scoring_method, "umi": args.umi,
                 "device": args.device, "backend": args.backend,
                 "host": "native", "sw_mode": args.sw_mode,
-                "fetch": "whole", "threads": args.threads,
+                "fetch": args.fetch, "threads": args.threads,
                 "padding": args.padding,
             },
         }

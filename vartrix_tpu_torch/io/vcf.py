@@ -5,8 +5,8 @@ Provides what the reference uses from rust-htslib's bcf reader
 order, exposing chrom, 0-based pos and the allele list
 ([REF] when the ALT column is '.', else [REF, ALT1, ...]).
 
-Plain-text .vcf and gzip/bgzip-compressed .vcf.gz are supported; binary
-BCF is detected (is_bcf) and not yet read.
+Plain-text .vcf and gzip/bgzip-compressed .vcf.gz are supported, and
+binary BCF (io/bcf.py), detected by content.
 """
 
 from __future__ import annotations
@@ -47,9 +47,11 @@ def is_bcf(path: str) -> bool:
 
 
 def read_vcf_records(path: str) -> List[VcfRecord]:
-    """Read variant records from .vcf or .vcf.gz/.vcf.bgz."""
+    """Read variant records from .vcf, .vcf.gz/.vcf.bgz, or binary .bcf
+    (format detected by content, like htslib's bcf::Reader)."""
     if is_bcf(path):
-        raise ValueError(f"{path}: BCF input is not yet ported")
+        from .bcf import read_bcf_records
+        return read_bcf_records(path)
     return list(iter_vcf_records(path))
 
 
