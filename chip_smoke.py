@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card and toolchain: name and power limit (nvidia-smi), torch, CUDA;
   2. build: the CUDA kernels sw_pair.cu, sw_banded.cu and band_build.cu
-     (nvcc), libgenomio and the host band reference band_bounds.cpp (g++)
-     from the checkout's sources, two probes (nvcc, SASS only: the least
-     DP cell update, and band_build's candidate scoring) and a DPX rate
-     probe (nvcc), all in parallel, with the compiler's register report;
+     (nvcc), libgenomio, libcramio (its link line printed) and the host
+     band reference band_bounds.cpp (g++) from the checkout's sources, two
+     probes (nvcc, SASS only: the least DP cell update, and band_build's
+     candidate scoring) and a DPX rate probe (nvcc), all in parallel, with
+     the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, exact
      equality. sw_pair (int32 scores and int8 codes) on each of its three
      routes: dense and 2-bit reads over the shape families of the full
@@ -32,9 +33,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      32- and 64-bit chain keys, and against the host reference on one
      homopolymer locus at ly=4032 whose matches need several chain-pass
      ranges and on the 65,602-base reads. sw_banded: scores and codes on
-     those bounds against its plain version. A 100,000-base haplotype pair
-     (a deletion alt) against 1,024 reads (2,048 until the sparse phase
-     came, cut for time), under 32 MiB scratch budgets, small enough that
+     those bounds against its plain version. On every family of the
+     banded path, both banded kernels' plain-row mode (read p against
+     haplotype row p, the Python host path's): the bounds against the plain
+     version and the host reference, the scores against the plain version.
+     A 100,000-base haplotype pair (a deletion alt) against 512 reads
+     (cut for time), under 16 MiB scratch budgets, small enough that
      band_build, sw_banded and sw_pair each run several ranges, against
      the plain versions and the host reference;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
@@ -48,7 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      core and of its masked zones, the cells it visits and the lane slots
      its divergence leaves idle; for band_build (given its index) the host
      reference's time per pair (the route it replaced); band_index on the
-     bucket's haplotype matrix, and torch.sort of the same keys;
+     bucket's haplotype matrix, and torch.sort of the same keys; both
+     banded kernels' plain-row mode on the same 131,072 problems as plain
+     rows, in turns with their pair mode, with its bound;
   5. end to end: a seeded 500,000-read dataset (generated in a worker
      process while phase 3 runs) through the driver in
      --sw-mode full and banded, each with --backend cuda in the three
@@ -73,7 +79,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      vartrix_tpu_torch.io.bai, --checkpoint-dir twice (the rerun launches
      sw_pair 0 times); every matrix CSR-equal to its mode's --fetch whole
      run; and in-process the bounded-memory loader forced on against the
-     monolithic load, column by column.
+     monolithic load, column by column;
+  7. CRAM and the Python host: phase 5's dataset written as a CRAM with
+     its .crai (by a worker process beside phases 4-6), and a 50,000-read
+     cut of it (100 variants, the widths unchanged: the Python record path
+     decodes and joins each record in Python, so 500,000 would not fit the
+     time limit) as a BAM and a CRAM (a third worker process from phase
+     3). In-process, --backend cuda: the CRAM in
+     full consensus with --fetch whole and auto and in banded consensus,
+     each CSR-equal to phase 5's BAM matrix of its mode with the same
+     launches, libcramio's decode taken; --host python on the 50,000-read
+     BAM and CRAM in full consensus and on the BAM in banded consensus,
+     each CSR-equal to the native host's run on the same file, sw_pair
+     launched on the full runs and both banded kernels in their plain-row
+     mode on the banded one, the host band reference never; then python -m
+     vartrix_tpu_torch.io.bai on the 50,000-read CRAM (the writer's
+     multi-reference slices are indexed by decoding their records in
+     Python), whose .crai must equal the one written with it.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -256,6 +278,13 @@ extern "C" int dpx_rate_launch(const void* in, int iters, int blocks,
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
+# phase 7's --host python dataset: phase 5's widths with a tenth of its
+# variants (50,000 reads), cut because the Python record path decodes and
+# joins every record in Python
+PY_HOST_CFG = dict(E2E_CFG, n_variants=100)
+# every launch counter of ops/sw_cuda, zeroed before a path and read after
+COUNTERS = ("LAUNCHES", "BANDED_LAUNCHES", "BAND_LAUNCHES", "INDEX_LAUNCHES",
+            "BANDED_ROW_LAUNCHES", "BAND_ROW_LAUNCHES")
 # phase 6: a sparse whole-genome-like dataset, bench.py COHORT_CFG's genome
 # (16 x 4 Mb) with ~6 variants and ~20,000 background reads per Mb
 SPARSE_CFG = dict(n_chroms=16, chrom_len=4_000_000, n_variants=400,
@@ -490,8 +519,8 @@ def wide_full_family(rng, n_reads=4, n=65600, ly=70000):
     return x, np.stack([hap, alt]), idx, idx + 1, [n - 7, n - 13]
 
 
-def long_hap_family(rng, n_reads=1024, lx=160, ly=100_000):
-    """1,024 reads of 140-150 bases (1 % errors) sampled from a
+def long_hap_family(rng, n_reads=512, lx=160, ly=100_000):
+    """512 reads of 140-150 bases (1 % errors) sampled from a
     100,000-base haplotype and from its alt, the same with 50 bases
     deleted at base 50,000: a long deletion locus, whose DP scratch
     (ly words per problem) and band scratch (thousands of chance 6-mer
@@ -722,7 +751,7 @@ def phase_build():
     t0 = time.perf_counter()
     builders = (_build.kernel_library, _build.banded_kernel_library,
                 _build.band_build_library, _build.genomio_library,
-                _build.band_bounds_library,
+                _build.band_bounds_library, _build.cramio_library,
                 lambda: build_probe("candidate_probe", PROBE_SRC),
                 lambda: build_probe("cell_probe", CELL_PROBE_SRC),
                 lambda: build_probe("dpx_rate", DPX_RATE_SRC, "-shared"))
@@ -730,8 +759,9 @@ def phase_build():
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
-        f"band_bounds.cpp + the candidate, cell and DPX rate probes in "
-        f"{time.perf_counter() - t0:.2f}s")
+        f"band_bounds.cpp + cramio.cpp + the candidate, cell and DPX rate "
+        f"probes in {time.perf_counter() - t0:.2f}s")
+    log("  libcramio: " + _build.build_log(paths[5]).splitlines()[0])
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"  nvcc: {nvcc[-1]}")
@@ -740,7 +770,7 @@ def phase_build():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"  ptxas {os.path.basename(path)}: {line.strip()}")
-    return paths[:3] + paths[5:]
+    return paths[:3] + paths[6:]
 
 
 def sass_loops(kern_path, symbol, opcode):
@@ -1072,7 +1102,7 @@ def phase_banded_equality(rng, threads):
         "wide_40000": wide_family(rng),
         "repetitive": repetitive_family(rng),
     }
-    worst = band_worst = index_worst = 0
+    worst = band_worst = index_worst = rows_band = rows_worst = 0
     for name, (x, haps, ir, ia) in families.items():
         host = sw_native.band_bounds(x, haps, ir, ia, threads)
         xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
@@ -1119,6 +1149,9 @@ def phase_banded_equality(rng, threads):
             fail("the wide family's band or score is not the expected one")
         if name == "repetitive" and int(matches.max()) < 1000:
             fail("the repetitive family has fewer matches than intended")
+        bad, err = check_rows(name, x, haps, ir, [h[:, 0::2] for h in host])
+        rows_band = max(rows_band, bad)
+        rows_worst = max(rows_worst, err)
     # one homopolymer locus: its chain pass runs over several ranges of the
     # scratch budget. The plain builder's loop over match ranks would take
     # minutes here, so the bounds are held against the host reference
@@ -1149,7 +1182,44 @@ def phase_banded_equality(rng, threads):
     worst = max(worst, err)
     worst = max(worst, check_wide_banded(rng, threads))
     err, bad = check_long_hap(rng, threads)
-    return max(band_worst, bad), max(worst, err), index_worst
+    return (max(band_worst, bad), max(worst, err), index_worst, rows_band,
+            rows_worst)
+
+
+def check_rows(name, x, haps, ir, host):
+    """Both banded kernels' plain-row mode on a family's (read, ref)
+    problems: reads x against the rows haps[ir], identity indices. The
+    bounds against the plain version and the host reference (`host`: its
+    bounds of the same problems), the scores against the plain version,
+    and banded_batch_scores (index, bounds and scores in one call) against
+    them. Returns (bound mismatches, max |err|)."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch, sw_banded_torch, sw_cuda
+
+    xt = torch.from_numpy(x).cuda()
+    yt = torch.from_numpy(np.ascontiguousarray(haps[ir])).cuda()
+    ident = torch.arange(len(x), dtype=torch.int32, device="cuda")
+    n0 = (sw_cuda.BAND_ROW_LAUNCHES, sw_cuda.BANDED_ROW_LAUNCHES)
+    got = sw_cuda.band_bounds(xt, yt, ident)
+    plain = band_torch.band_bounds(xt, yt, ident)
+    sync()
+    bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
+              for g, h, q in zip(got, host, plain))
+    sc = sw_cuda.banded_scores(xt, yt, *got)
+    whole = sw_cuda.banded_batch_scores(xt, yt)
+    ref = sw_banded_torch.banded_scores(xt, yt, *got)
+    sync()
+    err = max(int((sc - ref).abs().max().item()),
+              int((whole - ref).abs().max().item())) if len(x) else 0
+    n = (sw_cuda.BAND_ROW_LAUNCHES - n0[0], sw_cuda.BANDED_ROW_LAUNCHES - n0[1])
+    log(f"plain rows {name:11s} B={len(x)} lx={x.shape[1]} ly={haps.shape[1]}"
+        f": band_build bound mismatches vs host and plain {bad}; sw_banded "
+        f"max|err|={err}; launches in plain-row mode {n}")
+    if bad or err or min(n) < 2:
+        fail(f"the plain-row banded mode disagrees on {name}")
+    return bad, err
 
 
 def check_wide_banded(rng, threads):
@@ -1185,7 +1255,7 @@ def check_wide_banded(rng, threads):
 
 
 def check_long_hap(rng, threads):
-    """long_hap_family under 32 MiB scratch budgets: band_index once,
+    """long_hap_family under 16 MiB scratch budgets: band_index once,
     band_build (several chain-pass ranges) against the plain version and
     the host reference, sw_banded (scores and codes) and sw_pair (scores)
     over several read ranges against their plain versions. Returns (max
@@ -1198,7 +1268,7 @@ def check_long_hap(rng, threads):
     x, haps, ir, ia = long_hap_family(rng)
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     saved = sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES
-    sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 32 << 20
+    sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 16 << 20
     try:
         n0 = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
               sw_cuda.BAND_LAUNCHES)
@@ -1426,7 +1496,14 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
     probe's SASS; a scan that starts and stops each row at its band edges
     tests nothing per cell), against its bytes (reads, haplotypes,
     indices, bounds in, codes out). Also the host reference's time per
-    pair, the route band_build replaced."""
+    pair, the route band_build replaced.
+
+    The plain-row mode (the Python host path's) on the same 131,072
+    problems as plain rows in that path's order (core/pipeline.score_all:
+    each read against its ref row, then its alt row), identity indices,
+    timed in turns with the pair mode (pair, rows, rows, pair): the same
+    bounds, counted the same way, with the rows' bytes (a read, a
+    haplotype row and an index per problem; int32 scores out)."""
     import numpy as np
     import torch
 
@@ -1447,10 +1524,26 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
     host_us = (time.perf_counter() - t0) / pairs * 1e6
     args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     index = sw_cuda.band_index(args[1])
-    band_ms = time_cuda(lambda: sw_cuda.band_bounds(*args, index), 3, 15)
+    xr = args[0].repeat_interleave(2, dim=0)
+    yr = args[1][torch.stack([args[2], args[3]], 1).reshape(-1).long()]
+    ident = torch.arange(pairs, dtype=torch.int32, device="cuda")
+    index_r = sw_cuda.band_index(yr)
+    band_fn = {"pair": lambda: sw_cuda.band_bounds(*args, index),
+               "rows": lambda: sw_cuda.band_bounds(xr, yr, ident,
+                                                   index=index_r)}
+    band_times = collections.defaultdict(list)
+    for mode in ("pair", "rows", "rows", "pair"):
+        band_times[mode].append(time_cuda(band_fn[mode], 3, 15))
+    band_ms, band_rows_ms = (statistics.median(band_times[m])
+                             for m in ("pair", "rows"))
     band_plain_ms = time_cuda(lambda: band_torch.band_bounds(*args), 1, 2)
+    band_rows_plain_ms = time_cuda(lambda: band_torch.band_bounds(xr, yr,
+                                                                  ident), 1, 2)
     jlo_t, jhi_t = sw_cuda.band_bounds(*args, index)
+    jlo_r, jhi_r = sw_cuda.band_bounds(xr, yr, ident, index=index_r)
     jlo, jhi = jlo_t.cpu().numpy(), jhi_t.cpu().numpy()
+    if not (torch.equal(jlo_r, jlo_t) and torch.equal(jhi_r, jhi_t)):
+        fail("band_build's plain-row bounds differ from its pair bounds")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_per_s = sms * ISSUE_PER_SM_CLK * clock_hz
     counts = match_counts(*args).cpu().numpy()
@@ -1481,12 +1574,41 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
     band = dict(ms=band_ms, plain_ms=band_plain_ms, bound_ms=b_bound,
                 bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes",
                 library_ms=None)
+    # the plain rows carry a haplotype row and an index per problem
+    rows_in = xr.numel() + yr.numel() + 4 * pairs
+    rb_bytes_ms = (rows_in + jlo.nbytes + jhi.nbytes) / HBM_BYTES_PER_S * 1e3
+    rb_bound = max(b_ops_ms, rb_bytes_ms)
+    log(f"timing band_build plain rows: {pairs} problems in "
+        f"{band_rows_ms:.4f} ms ("
+        + ", ".join(f"{t:.4f}" for t in band_times["rows"])
+        + ") against the pair mode's " + ", ".join(
+            f"{t:.4f}" for t in band_times["pair"])
+        + f" ms in turns ({100 * (band_rows_ms / band_ms - 1):+.1f} %); "
+        f"plain {band_rows_plain_ms:.3f} ms; bound {rb_bound:.4f} ms "
+        f"(operations {b_ops_ms:.4f} ms as the pair mode's, "
+        f"{rows_in + jlo.nbytes + jhi.nbytes} bytes {rb_bytes_ms:.4f} ms), "
+        f"{100 * rb_bound / band_rows_ms:.1f} % of the kernel's time")
+    band_rows = dict(ms=band_rows_ms, plain_ms=band_rows_plain_ms,
+                     bound_ms=rb_bound, library_ms=None,
+                     bound_by="operations" if b_ops_ms >= rb_bytes_ms
+                     else "bytes")
     index_timing = time_index(args[1], issue_per_s)
     # sw_banded on the kernel's bounds
     dp_args = args + (jlo_t, jhi_t)
-    ms = time_cuda(lambda: sw_cuda.banded_pair_calls(*dp_args), 3, 15)
+    dp_fn = {"pair": lambda: sw_cuda.banded_pair_calls(*dp_args),
+             "rows": lambda: sw_cuda.banded_scores(xr, yr, jlo_r, jhi_r)}
+    dp_times = collections.defaultdict(list)
+    for mode in ("pair", "rows", "rows", "pair"):
+        dp_times[mode].append(time_cuda(dp_fn[mode], 3, 15))
+    ms, rows_ms = (statistics.median(dp_times[m]) for m in ("pair", "rows"))
     plain_ms = time_cuda(lambda: sw_banded_torch.banded_pair_calls(
         *dp_args), 1, 3)
+    rows_plain_ms = time_cuda(lambda: sw_banded_torch.banded_scores(
+        xr, yr, jlo_r, jhi_r), 1, 3)
+    rows_got = sw_cuda.banded_scores(xr, yr, jlo_r, jhi_r)
+    pair_got = sw_cuda.banded_pair_scores(*dp_args)
+    if not torch.equal(rows_got, pair_got.T.reshape(-1)):
+        fail("sw_banded's plain-row scores differ from its pair scores")
     in_band = int((jhi.astype(np.int64) - jlo).sum())
     full = true_cells(x, haps, ir, ia)
     ops_ms = in_band * pair_instr / issue_per_s * 1e3
@@ -1522,7 +1644,22 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
     banded = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                   library_ms=None)
-    return band, banded, index_timing
+    r_bytes = rows_in + jlo.nbytes + jhi.nbytes + 4 * pairs
+    r_bytes_ms = r_bytes / HBM_BYTES_PER_S * 1e3
+    r_bound = max(ops_ms, r_bytes_ms)
+    log(f"timing sw_banded plain rows (int32 scores): {pairs} problems in "
+        f"{rows_ms:.4f} ms (" + ", ".join(f"{t:.4f}" for t in dp_times["rows"])
+        + ") against the pair mode's (int8 codes) " + ", ".join(
+            f"{t:.4f}" for t in dp_times["pair"])
+        + f" ms in turns ({100 * (rows_ms / ms - 1):+.1f} %); plain "
+        f"{rows_plain_ms:.3f} ms; bound {r_bound:.4f} ms (operations "
+        f"{ops_ms:.4f} ms as the pair mode's, {r_bytes} bytes "
+        f"{r_bytes_ms:.4f} ms), {100 * r_bound / rows_ms:.1f} % of the "
+        "kernel's time")
+    banded_rows = dict(ms=rows_ms, plain_ms=rows_plain_ms, bound_ms=r_bound,
+                       bound_by="operations" if ops_ms >= r_bytes_ms
+                       else "bytes", library_ms=None)
+    return band, banded, index_timing, band_rows, banded_rows
 
 
 def time_index(ht, issue_per_s):
@@ -1592,6 +1729,22 @@ def entries_differing(a, b):
                    or (math.isnan(ea[k]) and math.isnan(eb[k])))))
 
 
+def write_cram_of(data):
+    """data's BAM written as a CRAM beside it (rANS order 0 blocks,
+    reference-based against its FASTA) with its .crai: (its path, seconds
+    taken). Run in a worker process."""
+    from vartrix_tpu_torch.io.bam import BamReader
+    from vartrix_tpu_torch.io.cram import write_crai, write_cram
+
+    t0 = time.perf_counter()
+    b = BamReader(data["bam"])
+    cram = os.path.join(os.path.dirname(data["bam"]), "reads.cram")
+    write_cram(cram, list(zip(b.ref_names, b.ref_lens)), b.records(),
+               fasta_path=data["fasta"], block_method="rans0")
+    write_crai(cram, fasta_path=data["fasta"])
+    return cram, time.perf_counter() - t0
+
+
 def generate_e2e(work):
     """Phase 5's dataset (run in a worker process during phase 3): (the
     dataset's paths and read count, seconds taken)."""
@@ -1599,6 +1752,20 @@ def generate_e2e(work):
 
     t0 = time.perf_counter()
     data = generate_dataset(os.path.join(work, "e2e"), SynthConfig(**E2E_CFG))
+    data.pop("genotypes")
+    return data, time.perf_counter() - t0
+
+
+def generate_py_host(work):
+    """Phase 7's --host python dataset as a BAM and a CRAM (a third worker
+    process, from phase 3): (the dataset with "cram" added, seconds)."""
+    from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
+
+    t0 = time.perf_counter()
+    data = generate_dataset(os.path.join(work, "py_host"),
+                            SynthConfig(**PY_HOST_CFG))
+    data.pop("genotypes")
+    data["cram"], _ = write_cram_of(data)
     return data, time.perf_counter() - t0
 
 
@@ -1608,8 +1775,9 @@ def phase_e2e(work, data):
     version being slow), on generate_e2e's dataset. Every kernel's count is
     zeroed just before each (path, backend) group and read just after;
     returns the launches of the full path's cuda runs (sw_pair) and the
-    banded path's (sw_banded, band_build, band_index). The host band
-    reference must never be called."""
+    banded path's (sw_banded, band_build, band_index), the matrices'
+    paths by (sw_mode, mode, backend) and each run's kernel_launches by
+    tag. The host band reference must never be called."""
     from vartrix_tpu_torch import driver
     from vartrix_tpu_torch.ops import sw_cuda, sw_native
 
@@ -1640,6 +1808,7 @@ def phase_e2e(work, data):
     outs = {}
     launches = {}
     n_buckets = {}
+    run_launches = {}
     for sw_mode in own:
         for be, be_args in backends.items():
             sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
@@ -1679,6 +1848,7 @@ def phase_e2e(work, data):
                     f"{payload['kernel_launches']}, phases "
                     f"{payload['phase_seconds']}")
                 outs[sw_mode, mode, be] = (out, ref)
+                run_launches[tag] = payload["kernel_launches"]
             launches[sw_mode, be] = {"sw_pair": sw_cuda.LAUNCHES,
                                      "sw_banded": sw_cuda.BANDED_LAUNCHES,
                                      "band_build": sw_cuda.BAND_LAUNCHES,
@@ -1720,10 +1890,128 @@ def phase_e2e(work, data):
             f"{entries_differing(a[0], b[0])}"
             + (f", ref matrix {entries_differing(a[1], b[1])}"
                if mode == "coverage_umi" else ""))
-    return {"sw_pair": launches["full", "cuda"]["sw_pair"],
-            "sw_banded": launches["banded", "cuda"]["sw_banded"],
-            "band_build": launches["banded", "cuda"]["band_build"],
-            "band_index": launches["banded", "cuda"]["band_index"]}
+    return ({"sw_pair": launches["full", "cuda"]["sw_pair"],
+             "sw_banded": launches["banded", "cuda"]["sw_banded"],
+             "band_build": launches["banded", "cuda"]["band_build"],
+             "band_index": launches["banded", "cuda"]["band_index"]},
+            outs, run_launches)
+
+
+def phase_cram_python(work, data, py, outs, run_launches):
+    """Phase 7: phase 5's CRAM on the native host (full consensus with
+    --fetch whole and auto, banded consensus), each CSR-equal to phase 5's
+    BAM run of its mode with the same launches and libcramio's decode;
+    then --host python on the 50,000-read BAM and CRAM (full consensus)
+    and BAM (banded consensus), each CSR-equal to the native host's run on
+    the same file, and the 50,000-read CRAM's .crai rebuilt by python -m
+    vartrix_tpu_torch.io.bai. Every launch counter is zeroed just before
+    each run and read just after; returns the Python host's launches
+    (sw_pair on its full runs; sw_banded and band_build in their plain-row
+    mode on the banded run)."""
+    from vartrix_tpu_torch import driver
+    from vartrix_tpu_torch.ops import sw_cuda, sw_native
+
+    t_start = time.perf_counter()
+    host_calls = [0]
+    band_bounds = sw_native.band_bounds
+
+    def counted_band_bounds(*args, **kwargs):
+        host_calls[0] += 1
+        return band_bounds(*args, **kwargs)
+
+    def run(tag, d, reads, *extra):
+        out = os.path.join(work, f"p7_{tag}.mtx")
+        mj = os.path.join(work, f"p7_{tag}.json")
+        argv = ["-v", d["vcf"], "-b", reads, "-f", d["fasta"], "-c",
+                d["barcodes"], "-o", out, "--threads",
+                str(os.cpu_count() or 1), "--metrics-json", mj,
+                "--backend", "cuda", *extra]
+        for name in COUNTERS:
+            setattr(sw_cuda, name, 0)
+        t0 = time.perf_counter()
+        driver._main(argv)
+        dt = time.perf_counter() - t0
+        n = {name: getattr(sw_cuda, name) for name in COUNTERS}
+        with open(mj) as f:
+            payload = json.load(f)
+        log(f"cram/python {tag}: {dt:.3f}s, {d['n_reads'] / dt:.0f} reads/s, "
+            f"nnz {payload['matrix']['nnz']}, cram_decode "
+            f"{payload.get('cram_decode')}, counters {n}, phases "
+            f"{payload['phase_seconds']}")
+        return out, payload, n
+
+    def same(tag, a, b):
+        ok = csr_equal(a, b)
+        log(f"cram/python {tag}: CSR-equal to its baseline: {ok}")
+        if not ok:
+            fail(f"phase 7 {tag}: the matrix differs from its baseline")
+
+    sw_native.band_bounds = counted_band_bounds
+    try:
+        for tag, extra, base in (
+                ("cram_full_whole", ("--fetch", "whole"), "full"),
+                ("cram_full_auto", ("--fetch", "auto"), "full"),
+                ("cram_banded_auto", ("--sw-mode", "banded"), "banded")):
+            out, payload, n = run(tag, data, data["cram"], *extra)
+            same(tag, out, outs[base, "consensus", "cuda"][0])
+            want = run_launches[f"{base}_consensus_cuda"]
+            got = {"sw_pair": n["LAUNCHES"], "sw_banded": n["BANDED_LAUNCHES"],
+                   "band_build": n["BAND_LAUNCHES"],
+                   "band_index": n["INDEX_LAUNCHES"]}
+            if got != want or payload.get("cram_decode") != "native":
+                fail(f"phase 7 {tag}: launches {got} against the BAM run's "
+                     f"{want}, CRAM decode {payload.get('cram_decode')}")
+        py_launches = {}
+        for tag, reads, extra in (
+                ("py_bam_full", py["bam"], ()),
+                ("py_cram_full", py["cram"], ()),
+                ("py_bam_banded", py["bam"], ("--sw-mode", "banded"))):
+            base, _, _ = run(f"{tag}_native", py, reads, *extra)
+            out, payload, n = run(f"{tag}_python", py, reads, "--host",
+                                  "python", *extra)
+            same(f"{tag}_python", out, base)
+            if payload["config"]["host"] != "python":
+                fail(f"phase 7 {tag}: the run did not take the Python host")
+            if "banded" in extra:
+                ok = (min(n["BANDED_ROW_LAUNCHES"], n["BAND_ROW_LAUNCHES"],
+                          n["INDEX_LAUNCHES"]) > 0 and n["LAUNCHES"] ==
+                      n["BANDED_LAUNCHES"] == n["BAND_LAUNCHES"] == 0)
+                py_launches["sw_banded_rows"] = n["BANDED_ROW_LAUNCHES"]
+                py_launches["band_build_rows"] = n["BAND_ROW_LAUNCHES"]
+            else:
+                ok = n["LAUNCHES"] > 0 and n["BANDED_ROW_LAUNCHES"] == 0
+                py_launches[f"sw_pair_{tag}"] = n["LAUNCHES"]
+            if not ok:
+                fail(f"phase 7 {tag}: kernels launched {n}")
+    finally:
+        sw_native.band_bounds = band_bounds
+    log(f"cram/python: host band reference calls {host_calls[0]}")
+    if host_calls[0]:
+        fail("a phase 7 run built band bounds on the host")
+
+    # the 50,000-read CRAM: the writer's containers are multi-reference
+    # slices, which the index decodes record by record in Python
+    reindex = os.path.join(work, "reindex_cram")
+    os.makedirs(reindex)
+    cram2 = os.path.join(reindex, "reads.cram")
+    os.link(py["cram"], cram2)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "vartrix_tpu_torch.io.bai", cram2,
+                    "-f", py["fasta"]], cwd=HERE, check=True, timeout=600,
+                   capture_output=True)
+    with open(cram2 + ".crai", "rb") as f, \
+            open(py["cram"] + ".crai", "rb") as g:
+        a, b = f.read(), g.read()
+    # the gzip member's header holds the time it was written (bytes 4-8)
+    same_crai = a[:4] + a[8:] == b[:4] + b[8:]
+    log(f"cram/python: python -m vartrix_tpu_torch.io.bai wrote the "
+        f"{py['n_reads']}-read CRAM's .crai in {time.perf_counter() - t0:.1f}"
+        f" s, byte-equal to the one written with the CRAM but for the gzip "
+        f"timestamp: {same_crai}")
+    if not same_crai:
+        fail("the rebuilt .crai differs from the one written with the CRAM")
+    log(f"cram/python: phase 7 took {time.perf_counter() - t_start:.1f} s")
+    return py_launches
 
 
 def phase_cli(work):
@@ -2030,34 +2318,49 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
+        # workers: phase 5's dataset, phase 6's, phase 7's Python host
+        # dataset; then phase 5's BAM written as a CRAM beside phases 4-6
         with ProcessPoolExecutor(
-                2, mp_context=multiprocessing.get_context("spawn")) as pool:
+                3, mp_context=multiprocessing.get_context("spawn")) as pool:
             e2e_data = pool.submit(generate_e2e, work)
             sparse_data = pool.submit(generate_sparse, work)
+            py_data = pool.submit(generate_py_host, work)
             finish_wide = start_wide_pair(rng)
             worst = phase_equality(rng)
             done("sw_pair equality")
-            band_worst, banded_worst, index_worst = phase_banded_equality(
-                rng, threads)
+            (band_worst, banded_worst, index_worst, rows_band_worst,
+             rows_worst) = phase_banded_equality(rng, threads)
             worst = max(worst, finish_wide())
             done("banded equality")
             data, gen_s = e2e_data.result()
             log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in "
                 "a worker process, during phase 3)")
+            e2e_cram = pool.submit(write_cram_of, data)
             timing = phase_timing(rng, sass, clock_hz, paths[-1])
-            band_timing, banded_timing, index_timing = phase_banded_timing(
-                rng, sass, clock_hz, threads)
+            (band_timing, banded_timing, index_timing, band_rows_timing,
+             banded_rows_timing) = phase_banded_timing(rng, sass, clock_hz,
+                                                       threads)
             done("timing")
             t0 = time.perf_counter()
             sparse, sparse_s = sparse_data.result()
-        log(f"sparse: generated {sparse['n_reads']} reads in {sparse_s:.1f}s "
-            f"(in a second worker process, from phase 3; waited "
-            f"{time.perf_counter() - t0:.1f}s after phase 4)")
-        launches = phase_e2e(work, data)
-        done("e2e")
-        phase_cli(work)
-        phase_sparse(work, sparse)
-        done("sparse")
+            log(f"sparse: generated {sparse['n_reads']} reads in "
+                f"{sparse_s:.1f}s (in a second worker process, from phase 3; "
+                f"waited {time.perf_counter() - t0:.1f}s after phase 4)")
+            launches, outs, run_launches = phase_e2e(work, data)
+            done("e2e")
+            phase_cli(work)
+            phase_sparse(work, sparse)
+            done("sparse")
+            t0 = time.perf_counter()
+            data["cram"], cram_s = e2e_cram.result()
+            py, py_s = py_data.result()
+            log(f"cram/python: phase 5's {data['n_reads']} reads written as a "
+                f"CRAM in {cram_s:.1f}s (a worker process, beside phases 4-6;"
+                f" waited {time.perf_counter() - t0:.1f}s after phase 6); the "
+                f"Python host dataset ({py['n_reads']} reads, BAM and CRAM) "
+                f"in {py_s:.1f}s (a third worker process, from phase 3)")
+        launches.update(phase_cram_python(work, data, py, outs, run_launches))
+        done("cram and python host")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sw_note = "no PyTorch call computes Smith-Waterman"
@@ -2077,6 +2380,15 @@ def main():
          "vartrix_tpu/ops/sw_pallas_v2.py:1945 (no TPU kernel: the k-mer "
          "lookup of the host band construction of make_banded_tpu_scorer)",
          index_worst, index_timing, "torch.sort of the same keys"),
+        ("sw_banded_rows", "vartrix_tpu_torch/csrc/sw_banded.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:1836 (K4, its plain-row entry "
+         "_sw_banded_pairs, l.1908)",
+         rows_worst, banded_rows_timing, sw_note),
+        ("band_build_rows", "vartrix_tpu_torch/csrc/band_build.cu",
+         "vartrix_tpu/ops/sw_pallas_v2.py:1945 (no TPU kernel: the host band "
+         "construction of make_banded_tpu_scorer, on plain rows)",
+         rows_band_worst, band_rows_timing,
+         "no PyTorch call builds a chained band"),
     ]
     record = {"kernels": []}
     for name, source, replaces, err, t, note in kernels:
@@ -2096,6 +2408,9 @@ def main():
         })
         if "scalar_ms" in t:
             record["kernels"][-1]["word32_route_ms"] = t["scalar_ms"]
+        if name == "sw_pair":  # its plain-row route on the Python host
+            record["kernels"][-1]["python_host_launches"] = {
+                k: v for k, v in launches.items() if k.startswith("sw_pair_")}
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))
     print(card)

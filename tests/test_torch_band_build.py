@@ -266,6 +266,56 @@ def test_strip_loop_transliteration_matches_plain_dp(bands):
         assert core > 0 and exp.max() > 0  # the core zone ran
 
 
+# ------------------------------- the kernels' two layouts of problems
+
+def kernel_problems(n_reads, per_read):
+    """Python transliteration of the problem mapping of csrc/band_build.cu
+    `load_problem` and csrc/sw_banded.cu `sw_banded_kernel` (sw_pair.cu's
+    convention): a launch over n_reads reads has per_read * n_reads
+    problems; per_read == 2, problem p is read p >> 1 against idx_ref (p
+    even) or idx_alt (p odd); per_read == 1, read p against idx_ref[p].
+    Yields (p, read, which): which 0 idx_ref, 1 idx_alt; the score goes to
+    row `which`, column `read` of the [per_read, n_reads] output."""
+    for p in range(per_read * n_reads):
+        pair = per_read == 2
+        yield p, p >> 1 if pair else p, (p & 1) if pair else 0
+
+
+@pytest.mark.parametrize("per_read", [1, 2])
+def test_problem_mapping_transliteration_matches_plain(per_read):
+    x, haps, idx_ref, idx_alt = pair_case(seed=59, R=24, lx=40, ly=64)
+    t = [torch.from_numpy(a) for a in (x, haps, idx_ref, idx_alt)]
+    alt = t[3] if per_read == 2 else None
+    jlo, jhi = (b.numpy() for b in band_torch.band_bounds(*t[:3], alt))
+    assert jlo.shape == (x.shape[1], per_read * len(x))
+    got = np.zeros((per_read, len(x)), np.int32)
+    for p, read, which in kernel_problems(len(x), per_read):
+        h = (idx_ref, idx_alt)[which][read]
+        lo, hi = band_torch.band_bounds(t[0][read : read + 1],
+                                        t[1][h : h + 1],
+                                        torch.zeros(1, dtype=torch.int32))
+        np.testing.assert_array_equal(jlo[:, p], lo[:, 0].numpy())
+        np.testing.assert_array_equal(jhi[:, p], hi[:, 0].numpy())
+        got[which, read], _, _ = strip_loop(x[read], haps[h], jlo[:, p],
+                                            jhi[:, p])
+    if per_read == 2:
+        exp = sw_banded_torch.banded_pair_scores(
+            *t, torch.from_numpy(jlo), torch.from_numpy(jhi)).numpy()
+    else:
+        exp = _plain_scores(x, haps[idx_ref], jlo, jhi)[None]
+    np.testing.assert_array_equal(got, exp)
+    assert exp.max() > 0
+
+
+def test_plain_row_codes_refused():
+    # a call code fuses a read's (ref, alt) pair: plain rows have none
+    x, haps, idx_ref, _ = pair_case(seed=61, R=8, lx=24, ly=32)
+    t = [torch.from_numpy(a) for a in (x, haps, idx_ref)]
+    z = torch.zeros((24, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="call codes"):
+        sw_cuda._launch_banded(*t, None, z, z, True)
+
+
 # ------------------------------- the chain pass's problem ranges
 
 @pytest.mark.parametrize("counts, lx, budget", [

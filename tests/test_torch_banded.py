@@ -128,6 +128,31 @@ def test_plain_banded_dp_matches_k4_and_native(name):
     np.testing.assert_array_equal(got, native)
 
 
+@pytest.mark.parametrize("name", BOUND_FAMILIES + ["odd_bytes"])
+def test_backend_plain_rows_match_k4_and_native(name):
+    """K4's own entry, plain rows x [B, lx] against y [B, ly]: the banded
+    backend called on them (the Python host path's scorer, its plain
+    version here) against the TPU kernel in interpret mode and the native
+    aligner; the wrapper's plain-row band bounds against JAX's."""
+    x, y = family(name)
+    got = sw_cuda.BandedSwBackend("cpu", kernel=False)(x, y)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, make_banded_tpu_scorer(2)(x, y))
+    np.testing.assert_array_equal(
+        got, banded_sw_chained_batch_native(*_seqs(x, y), 2))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    np.testing.assert_array_equal(
+        sw_cuda.banded_batch_scores(xt, yt).numpy(), got)
+    ident = torch.arange(len(x), dtype=torch.int32)
+    jlo, jhi = sw_cuda.band_bounds(xt, yt, ident)
+    assert jlo.shape == (x.shape[1], len(x))
+    elo, ehi = banded_bounds_batch_native(*_seqs(x, y), x.shape[1], 2)
+    np.testing.assert_array_equal(jlo.numpy().T, elo.astype(np.int32))
+    np.testing.assert_array_equal(jhi.numpy().T, ehi.astype(np.int32))
+    np.testing.assert_array_equal(
+        sw_cuda.banded_scores(xt, yt, jlo, jhi).numpy(), got)
+
+
 def pair_case(seed=23, R=700, H=40, lx=64, ly=96):
     """Reads sampled (with indels and substitutions) from one of H
     haplotypes, scored against a random (ref, alt) pair of rows; row 3 is
@@ -309,6 +334,22 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
                     "CPU mode)")
     return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BOUND_FAMILIES + ["odd_bytes"])
+def test_plain_row_kernels_match_plain_on_card(cuda_device, name):
+    x, y = family(name)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    ident = torch.arange(len(x), dtype=torch.int32)
+    exp = sw_cuda.band_bounds(xt, yt, ident)
+    on_card = [t.to(cuda_device) for t in (xt, yt, ident)]
+    got = sw_cuda.band_bounds(*on_card)
+    for g, e in zip(got, exp):
+        np.testing.assert_array_equal(g.cpu().numpy(), e.numpy())
+    np.testing.assert_array_equal(
+        sw_cuda.banded_batch_scores(*on_card[:2]).cpu().numpy(),
+        sw_cuda.banded_batch_scores(xt, yt).numpy())
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@ import torch
 
 import vartrix_tpu_torch
 from vartrix_tpu_torch import driver
+from vartrix_tpu_torch.io.bam import BamReader
+from vartrix_tpu_torch.io.cram import write_crai, write_cram
 from vartrix_tpu_torch.ops import _build
 from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
@@ -91,25 +93,36 @@ def test_cuda_backend_on_cpu_refused(tmp_path, data):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--host", "python"], ["--device-agg"], ["--mesh-devices", "2"],
-    ["--distributed", "localhost:1234,2,0"], ["CRAM input"],
+    ["--device-agg"], ["--mesh-devices", "2"],
+    ["--distributed", "localhost:1234,2,0"],
 ], ids=lambda a: a[0])
 def test_unported_options_exit(tmp_path, data, extra, caplog):
     argv = _argv(data, tmp_path, "--device", "cpu", "--backend", "torch")
-    if extra == ["CRAM input"]:
-        # a stub CRAM with its index: refused by content before any decode
-        cram = tmp_path / "reads.cram"
-        cram.write_bytes(b"CRAM\x03\x00")
-        (tmp_path / "reads.cram.crai").write_bytes(b"")
-        argv[argv.index("-b") + 1] = str(cram)
-    else:
-        argv += extra
+    argv += extra
     with pytest.raises(SystemExit) as e:
         driver._main(argv)
     assert e.value.code != 0
     assert "not yet ported" in caplog.text
     assert extra[0] in caplog.text
     assert not (tmp_path / "o.mtx").exists()
+
+
+@pytest.mark.parametrize("extra", [["--host", "python"], ["CRAM input"]],
+                         ids=lambda a: a[0])
+def test_formerly_unported_options_run(tmp_path, data, extra, caplog):
+    argv = _argv(data, tmp_path, "--device", "cpu", "--backend", "torch")
+    if extra == ["CRAM input"]:
+        b = BamReader(data["bam"])
+        cram = str(tmp_path / "reads.cram")
+        write_cram(cram, list(zip(b.ref_names, b.ref_lens)), b.records(),
+                   fasta_path=data["fasta"])
+        write_crai(cram, fasta_path=data["fasta"])
+        argv[argv.index("-b") + 1] = cram
+    else:
+        argv += extra
+    driver._main(argv)
+    assert "not yet ported" not in caplog.text
+    assert (tmp_path / "o.mtx").read_text().startswith("%%MatrixMarket")
 
 
 def test_device_cpu_torch_runs(tmp_path, data):

@@ -4,6 +4,7 @@ the region and bounded-memory column loaders, and the `.mtx` of --fetch
 whole/auto/regions byte for byte, on a sparse whole-genome-like dataset
 (2 x 2 Mb, 12 variants, 20,000 background reads)."""
 
+import itertools
 import os
 import shutil
 import subprocess
@@ -16,11 +17,14 @@ import torch
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.io import bai as jbai
 from vartrix_tpu.io.bam_native import ColumnarBam as JaxColumnarBam
+from vartrix_tpu.io.cram import write_crai as jax_write_crai
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
 from vartrix_tpu_torch import driver as port_driver
 from vartrix_tpu_torch.io import bai as pbai
 from vartrix_tpu_torch.io import bam_native as pbn
 from vartrix_tpu_torch.io.bam import BamHeader
+from vartrix_tpu_torch.io.bam import BamReader as PortBamReader
+from vartrix_tpu_torch.io.cram import write_cram
 
 COLUMNS = ("tid", "pos", "ref_end", "mapq", "flag", "seq_off", "seq_pool",
            "itv_off", "itv_pool", "cb_off", "cb_pool", "ub_off", "ub_pool")
@@ -250,8 +254,19 @@ def test_index_cli_rebuilds_bai(sparse_ds, tmp_path):
                        cwd=root, capture_output=True, text=True, check=True)
     assert r.stdout.strip() == f"{bam} -> {bam}.bai"
     assert _read(bam + ".bai") == _read(sparse_ds["bam"] + ".bai")
-    cram = tmp_path / "x.cram"
-    cram.write_bytes(b"CRAM\x03\x00")
+    # a CRAM (told apart by content) gets its .crai, as JAX's write_crai
+    # writes it
+    b = PortBamReader(sparse_ds["bam"])
+    cram = str(tmp_path / "x.cram")
+    write_cram(cram, list(zip(b.ref_names, b.ref_lens)),
+               itertools.islice(b.records(), 300), records_per_container=100)
     r = subprocess.run([sys.executable, "-m", "vartrix_tpu_torch.io.bai",
-                        str(cram)], cwd=root, capture_output=True, text=True)
-    assert r.returncode == 1 and "not yet ported" in r.stderr
+                        cram], cwd=root, capture_output=True, text=True,
+                       check=True)
+    assert r.stdout.strip() == f"{cram} -> {cram}.crai"
+    (tmp_path / "jax").mkdir()
+    want = str(tmp_path / "jax" / "x.cram.crai")
+    jax_write_crai(cram, want)
+    # equal bytes but for the gzip header's timestamp (bytes 4-8)
+    got, exp = _read(cram + ".crai"), _read(want)
+    assert got[:4] + got[8:] == exp[:4] + exp[8:]

@@ -4,9 +4,8 @@ Mirrors the reference CLI exactly: same 18 flags, same short names, same
 defaults, same choices (reference src/main.rs:40-135), plus the framework
 flags of vartrix_tpu's CLI. --device and --backend choose where and how
 the Smith-Waterman scores are computed. Flags whose path this package has
-not ported yet (--host python, --device-agg, --mesh-devices,
---distributed; CRAM input) are accepted and refused by the driver with a
-message.
+not ported yet (--device-agg, --mesh-devices, --distributed) are accepted
+and refused by the driver with a message.
 """
 
 from __future__ import annotations
@@ -26,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--vcf", metavar="FILE", required=True,
                    help="Called variant file (VCF, or BCF)")
     p.add_argument("-b", "--bam", metavar="FILE", required=True,
-                   help="Cellranger BAM file")
+                   help="Cellranger BAM file, or a CRAM (told apart by "
+                        "content; its .crai beside it)")
     p.add_argument("-f", "--fasta", metavar="FILE", required=True,
                    help="Genome fasta file")
     p.add_argument("-c", "--cell-barcodes", dest="cell_barcodes", metavar="FILE",
@@ -91,8 +91,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(k-mer chained band, k=6 w=20, reproducing the "
                         "reference tool's rust-bio banding behavior)")
     p.add_argument("--host", choices=["auto", "native", "python"], default="auto",
-                   help="Host-side BAM runtime: native columnar decoder "
-                        "(libgenomio C++; 'python' is not yet ported)")
+                   help="Host-side read runtime: the native columnar decoder "
+                        "(libgenomio C++, and libcramio for a CRAM; 'auto' "
+                        "takes it) or the Python record path (io/bam.py, "
+                        "io/cram.py), which scores plain rows and logs each "
+                        "read's alignment at --log-level debug")
     p.add_argument("--fetch", choices=["auto", "whole", "regions"],
                    default="auto",
                    help="BAM read strategy: decode the whole file (fastest "

@@ -1,12 +1,18 @@
-"""Variant preparation: VCF records -> per-variant haplotypes and skip
-flags, with the reference's semantics (reference src/main.rs:646-684).
+"""Variant preparation (VCF records -> per-variant haplotypes and skip
+flags) and the Python record path (--host python): collect_reads streams
+the records once and joins each to the variant windows it overlaps through
+the filter chain; score_all scores every (read, haplotype) pair in padded
+shape buckets. Both keep the reference's semantics (reference
+src/main.rs:646-684, 829-894); the native path's counterparts are in
+core/fast_pipeline.py.
 """
 
 from __future__ import annotations
 
 import logging
+from bisect import bisect_left
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,9 +38,13 @@ class PipelineArgs:
 
 class VariantWork:
     """Per-variant state: the haplotypes, whether the record is skipped,
-    and its filter metrics (created lazily: untouched rows carry none)."""
+    the reads the Python record path collects for it, and its filter
+    metrics (the lists and metrics are created lazily: untouched rows carry
+    none)."""
 
-    __slots__ = ("row", "locus", "rref", "alt_hap", "skipped", "_metrics")
+    __slots__ = ("row", "locus", "rref", "alt_hap", "skipped",
+                 "_read_seqs", "_cell_indices", "_umis", "_qnames",
+                 "_metrics")
 
     def __init__(self, row: int, locus: Locus):
         self.row = row
@@ -42,7 +52,35 @@ class VariantWork:
         self.rref = b""
         self.alt_hap = b""
         self.skipped = False
+        self._read_seqs = None
+        self._cell_indices = None
+        self._umis = None
+        self._qnames = None
         self._metrics = None
+
+    @property
+    def read_seqs(self) -> List[bytes]:
+        if self._read_seqs is None:
+            self._read_seqs = []
+        return self._read_seqs
+
+    @property
+    def cell_indices(self) -> List[int]:
+        if self._cell_indices is None:
+            self._cell_indices = []
+        return self._cell_indices
+
+    @property
+    def umis(self) -> List[bytes]:
+        if self._umis is None:
+            self._umis = []
+        return self._umis
+
+    @property
+    def qnames(self) -> List[bytes]:
+        if self._qnames is None:
+            self._qnames = []
+        return self._qnames
 
     @property
     def metrics(self) -> Metrics:
@@ -151,3 +189,151 @@ def prepare_variants(
             w.rref = rref
             w.alt_hap = alt_hap
     return works
+
+
+def _record_useful(rec, start: int, end: int) -> bool:
+    """Reference useful_alignment (src/main.rs:790-806): an aligned base
+    (M/=/X, or D; not N, not soft-clip) at any ref position in
+    [start, end] INCLUSIVE."""
+    try:
+        hi = end + 1  # inclusive end -> half-open [start, end+1)
+        for a, b in rec.aligned_ref_intervals(include_dels=True):
+            if a < hi and b > start:
+                return True
+        return False
+    except Exception:
+        return False
+
+
+def collect_reads(
+    bam,
+    works: List[VariantWork],
+    cell_barcodes: Dict[bytes, int],
+    args: PipelineArgs,
+) -> None:
+    """Stream the records of `bam` (io/bam.BamReader, io/bai.RegionStream,
+    io/cram.CramReader, or anything with .tid_by_name and .records()) once
+    and attach the surviving reads to each overlapping variant, with the
+    filter-chain metrics of src/main.rs:829-894."""
+    # group fetchable variant windows per tid
+    by_tid: Dict[int, List[VariantWork]] = {}
+    for w in works:
+        if w.skipped:
+            continue
+        tid = bam.tid_by_name.get(w.locus.chrom)
+        if tid is None:
+            raise KeyError(f"chromosome {w.locus.chrom} not in BAM header")
+        by_tid.setdefault(tid, []).append(w)
+    index: Dict[int, Tuple[List[int], List[VariantWork], int]] = {}
+    for tid, ws in by_tid.items():
+        ws.sort(key=lambda w: (w.locus.start, w.row))
+        starts = [w.locus.start for w in ws]
+        max_span = max((w.locus.end - w.locus.start) for w in ws)
+        index[tid] = (starts, ws, max_span)
+
+    bam_tag = args.bam_tag.encode()
+    for rec in bam.records():
+        ent = index.get(rec.tid)
+        if ent is None:
+            continue
+        starts, ws, max_span = ent
+        rec_pos = rec.pos
+        rec_end = rec.endpos()
+        hi = bisect_left(starts, rec_end)
+        lo = bisect_left(starts, rec_pos - max_span)
+        if lo >= hi:
+            continue
+        seq: Optional[bytes] = None
+        cb_parsed = False
+        cb_val: Optional[bytes] = None
+        umi_parsed = False
+        umi_val: Optional[bytes] = None
+        for k in range(lo, hi):
+            w = ws[k]
+            # htslib fetch overlap: rec.pos < end and endpos > start
+            if not (rec_pos < w.locus.end and rec_end > w.locus.start):
+                continue
+            m = w.metrics
+            m.num_reads += 1
+            if rec.mapq < args.mapq:
+                m.num_low_mapq += 1
+                continue
+            if args.primary and (rec.is_secondary() or rec.is_supplementary()):
+                m.num_non_primary += 1
+                continue
+            if args.duplicates and rec.is_duplicate():
+                m.num_duplicates += 1
+                continue
+            if not _record_useful(rec, w.locus.start, w.locus.end):
+                m.num_not_useful += 1
+                continue
+            if not cb_parsed:
+                cb_parsed = True
+                cb_val = rec.aux_string(bam_tag)
+            cell_index = cell_barcodes.get(cb_val) if cb_val is not None else None
+            if cell_index is None:
+                m.num_not_cell_bc += 1
+                continue
+            if not umi_parsed:
+                umi_parsed = True
+                umi_val = rec.aux_string(b"UB")
+            if args.use_umi and umi_val is None:
+                m.num_non_umi += 1
+                continue
+            umi = umi_val if args.use_umi else b"\x01"
+            if seq is None:
+                seq = rec.seq_bytes()
+            w.read_seqs.append(seq)
+            w.cell_indices.append(cell_index)
+            w.umis.append(umi)
+            w.qnames.append(rec.qname)
+
+
+def score_all(
+    works: List[VariantWork],
+    score_batch_fn,
+    lx_quantum: int = 16,
+    ly_quantum: int = 32,
+) -> List[np.ndarray]:
+    """Score every (read, ref_hap) and (read, alt_hap) pair.
+
+    score_batch_fn(x uint8 [B, Lx], y uint8 [B, Ly]) -> int32 [B]: the
+    backend's plain-row entry (ops/sw_cuda.SwBackend or BandedSwBackend
+    called). Pairs are bucketed by quantized (Lx, Ly), reads padded with 0
+    and haplotypes with 1. Returns, per variant, an int32 [n_reads, 2]
+    array of (ref_score, alt_score).
+
+    Empty haplotypes (possible for empty-ALT deletion records at a
+    chromosome edge) score 0 without invoking the backend, matching
+    local SW on an empty sequence.
+    """
+    tasks: List[Tuple[int, int, int, bytes, bytes]] = []  # (w_idx, read_idx, which, x, y)
+    for wi, w in enumerate(works):
+        for ri, seq in enumerate(w.read_seqs):
+            tasks.append((wi, ri, 0, seq, w.rref))
+            tasks.append((wi, ri, 1, seq, w.alt_hap))
+
+    results = [np.zeros((len(w.read_seqs), 2), dtype=np.int32) for w in works]
+
+    def q(n: int, quantum: int) -> int:
+        return max(quantum, ((n + quantum - 1) // quantum) * quantum)
+
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for t_idx, (_, _, _, x, y) in enumerate(tasks):
+        if len(x) == 0 or len(y) == 0:
+            continue  # score stays 0
+        buckets.setdefault((q(len(x), lx_quantum), q(len(y), ly_quantum)), []).append(t_idx)
+
+    for (lx, ly), t_indices in sorted(buckets.items()):
+        B = len(t_indices)
+        xs = np.zeros((B, lx), dtype=np.uint8)       # pad byte 0
+        ys = np.full((B, ly), 1, dtype=np.uint8)     # pad byte 1
+        for b, t_idx in enumerate(t_indices):
+            _, _, _, x, y = tasks[t_idx]
+            xs[b, : len(x)] = np.frombuffer(x, dtype=np.uint8)
+            ys[b, : len(y)] = np.frombuffer(y, dtype=np.uint8)
+        scores = np.asarray(score_batch_fn(xs, ys), dtype=np.int32)
+        for b, t_idx in enumerate(t_indices):
+            wi, ri, which, _, _ = tasks[t_idx]
+            results[wi][ri, which] = scores[b]
+    return results

@@ -1,6 +1,12 @@
 // Per-row band bounds of --sw-mode banded, built on the card (sm_90a): the
 // reference tool's chained k-mer band (k = 6, w = 20) of every (read,
 // haplotype) problem of a launch of the banded DP (csrc/sw_banded.cu).
+// Problems come in sw_pair.cu's two layouts: per_read == 2, problem p is
+// read p/2 against idx_ref (p even) or idx_alt (p odd), the native host
+// path's (ref, alt) pairs; per_read == 1, problem p is read p against
+// idx_ref[p], the plain rows of the Python host path (K4's own entry,
+// vartrix_tpu/ops/sw_pallas_v2.py:1908 `_sw_banded_pairs`: x [B, lx]
+// against y [B, ly]), each problem once.
 //
 // Replaces no TPU kernel: the JAX package builds these bounds on the host
 // (vartrix_tpu/ops/sw_pallas_v2.py:1945 make_banded_tpu_scorer, through
@@ -200,12 +206,14 @@ struct Problem {
 __device__ Problem load_problem(const uint8_t* __restrict__ reads, int lx,
                                 int ly, const int32_t* __restrict__ idx_ref,
                                 const int32_t* __restrict__ idx_alt,
+                                int per_read,
                                 const unsigned long long* __restrict__ keys,
                                 const int32_t* __restrict__ pos,
                                 const int32_t* __restrict__ hap_len,
                                 size_t p) {
-  const size_t read = p >> 1;
-  const size_t hidx = __ldg(((p & 1) ? idx_alt : idx_ref) + read);
+  const bool pair = per_read == 2;
+  const size_t read = pair ? p >> 1 : p;
+  const size_t hidx = __ldg(((pair && (p & 1)) ? idx_alt : idx_ref) + read);
   Problem q;
   q.x = reads + read * lx;
   q.len_x = warp_true_len(q.x, lx, 0);
@@ -230,7 +238,7 @@ __device__ __forceinline__ void lookup(const Problem& q, int i, int n_i,
 __global__ void __launch_bounds__(kThreads)
 count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              const int32_t* __restrict__ idx_ref,
-             const int32_t* __restrict__ idx_alt,
+             const int32_t* __restrict__ idx_alt, int per_read,
              const unsigned long long* __restrict__ keys,
              const int32_t* __restrict__ pos,
              const int32_t* __restrict__ hap_len,
@@ -239,8 +247,8 @@ count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
                    (threadIdx.x >> 5);
   if (p >= n_prob) return;
   const int lane = threadIdx.x & 31;
-  const Problem q =
-      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, pos, hap_len, p);
+  const Problem q = load_problem(reads, lx, ly, idx_ref, idx_alt, per_read,
+                                 keys, pos, hap_len, p);
   long long n = 0;
   if (q.len_x >= kK && q.len_y >= kK) {
     const int n_i = q.len_x - kK + 1, n_j = q.len_y - kK + 1;
@@ -292,7 +300,7 @@ template <typename Key>
 __global__ void __launch_bounds__(kThreads)
 chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              const int32_t* __restrict__ idx_ref,
-             const int32_t* __restrict__ idx_alt,
+             const int32_t* __restrict__ idx_alt, int per_read,
              const unsigned long long* __restrict__ keys,
              const int32_t* __restrict__ pos,
              const int32_t* __restrict__ hap_len,
@@ -304,8 +312,8 @@ chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
                    (threadIdx.x >> 5);
   if (p >= p1) return;
   const int lane = threadIdx.x & 31;
-  const Problem q =
-      load_problem(reads, lx, ly, idx_ref, idx_alt, keys, pos, hap_len, p);
+  const Problem q = load_problem(reads, lx, ly, idx_ref, idx_alt, per_read,
+                                 keys, pos, hap_len, p);
   const int len_x = q.len_x, len_y = q.len_y;
   const long long start = p ? ends[p - 1] : 0;
   const long long count = ends[p] - start;
@@ -452,19 +460,24 @@ int band_index_build(const void* haps, int n_haps, int ly, void* keys,
 
 // First half of a band build on `stream`: each problem's match count, from
 // the index of band_index_build. reads: uint8 [n_reads, lx]; idx_ref,
-// idx_alt: int32 [n_reads]; keys, pos: [*, ly] and hap_len: int32 [*], the
-// index; counts: int64 [2 * n_reads]. Returns cudaGetLastError() (0 = ok).
+// idx_alt: int32 [n_reads] (idx_alt unread when per_read == 1); per_read:
+// 2 (problem p: read p/2 against idx_ref, p even, or idx_alt, p odd) or 1
+// (problem p: read p against idx_ref[p]); keys, pos: [*, ly] and hap_len:
+// int32 [*], the index; counts: int64 [per_read * n_reads]. Returns
+// cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for another
+// per_read.
 int band_build_count(const void* reads, int n_reads, int lx, int ly,
-                     const void* idx_ref, const void* idx_alt,
+                     const void* idx_ref, const void* idx_alt, int per_read,
                      const void* keys, const void* pos, const void* hap_len,
                      void* counts, void* stream) {
-  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+  if (per_read != 1 && per_read != 2) return cudaErrorInvalidValue;
+  const size_t n_prob = per_read * static_cast<size_t>(n_reads);
   if (n_prob > 0) {
     count_kernel<<<warp_blocks(n_prob), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(reads), n_prob, lx, ly,
         static_cast<const int32_t*>(idx_ref),
-        static_cast<const int32_t*>(idx_alt),
+        static_cast<const int32_t*>(idx_alt), per_read,
         static_cast<const unsigned long long*>(keys),
         static_cast<const int32_t*>(pos),
         static_cast<const int32_t*>(hap_len), static_cast<long long*>(counts));
@@ -473,20 +486,22 @@ int band_build_count(const void* reads, int n_reads, int lx, int ly,
 }
 
 // Second half, for problems [p0, p1): the chain DP and the band fill.
-// ends: int64 [2 * n_reads], the inclusive running sum of counts;
-// match_i, match_j, match_prev: int32 [ends[p1 - 1] - ends[p0 - 1]] each
-// (ends[-1] = 0), the range's matches; work_lo, work_hi: int32 [p1 - p0,
-// lx]; jlo, jhi: int32 [lx, 2 * n_reads], problem 2r read r against
-// idx_ref[r], 2r + 1 against idx_alt[r]. wide_keys: 64-bit chain keys
-// (needed from lx >= 2^25). Returns cudaGetLastError() (0 = ok).
+// Problems and per_read as band_build_count; ends: int64 [per_read *
+// n_reads], the inclusive running sum of counts; match_i, match_j,
+// match_prev: int32 [ends[p1 - 1] - ends[p0 - 1]] each (ends[-1] = 0), the
+// range's matches; work_lo, work_hi: int32 [p1 - p0, lx]; jlo, jhi: int32
+// [lx, per_read * n_reads], one column per problem. wide_keys: 64-bit
+// chain keys (needed from lx >= 2^25). Returns cudaGetLastError() (0 =
+// ok).
 int band_build_chain(const void* reads, int n_reads, int lx, int ly,
-                     const void* idx_ref, const void* idx_alt,
+                     const void* idx_ref, const void* idx_alt, int per_read,
                      const void* keys, const void* pos, const void* hap_len,
                      const void* ends, long long p0, long long p1,
                      void* match_i, void* match_j, void* match_prev,
                      void* work_lo, void* work_hi, void* jlo, void* jhi,
                      int wide_keys, void* stream) {
-  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+  if (per_read != 1 && per_read != 2) return cudaErrorInvalidValue;
+  const size_t n_prob = per_read * static_cast<size_t>(n_reads);
   if (p0 < 0 || p1 > static_cast<long long>(n_prob)) {
     return cudaErrorInvalidValue;
   }
@@ -496,7 +511,7 @@ int band_build_chain(const void* reads, int n_reads, int lx, int ly,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(reads), n_prob, lx, ly,
         static_cast<const int32_t*>(idx_ref),
-        static_cast<const int32_t*>(idx_alt),
+        static_cast<const int32_t*>(idx_alt), per_read,
         static_cast<const unsigned long long*>(keys),
         static_cast<const int32_t*>(pos),
         static_cast<const int32_t*>(hap_len),

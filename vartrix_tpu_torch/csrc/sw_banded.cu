@@ -4,7 +4,11 @@
 //
 // Replaces the TPU kernel of that path, vartrix_tpu/ops/sw_pallas_v2.py:1836
 // `_sw_kernel_v4_banded` (entry `_sw_banded_pairs`, l.1907): the full
-// anti-diagonal DP with every cell masked by its read row's band. Each read
+// anti-diagonal DP with every cell masked by its read row's band. Problems
+// come in sw_pair.cu's two layouts: per_read == 2, a read's ref and alt in
+// adjacent threads (the native host path, which may fuse their scores into
+// one call code); per_read == 1, read p against idx_ref[p], K4's own plain
+// rows x [B, lx] against y [B, ly] (the Python host path). Each read
 // row i carries one column interval [jlo[i], jhi[i]) built on the card by
 // csrc/band_build.cu (the reference tool's chained k-mer band). Cells in
 // the band follow the recurrence of csrc/sw_pair.cu:
@@ -219,26 +223,28 @@ __device__ int sw_banded_problem(const uint8_t* __restrict__ row, int lx,
   return best;
 }
 
-// Problem p scores read p/2 against idx_ref (p even) or idx_alt (p odd);
-// its bounds are column p of jlo/jhi, rows bound_stride apart.
-// kCodes: one int8 call code per read, else int32 scores
-// [2][score_stride] (columns [0, n_reads) written).
+// per_read == 2: problem p scores read p/2 against idx_ref (p even) or
+// idx_alt (p odd); per_read == 1: read p against idx_ref[p]. Its bounds
+// are column p of jlo/jhi, rows bound_stride apart.
+// kCodes (per_read == 2 only): one int8 call code per read, else int32
+// scores [per_read][score_stride] (columns [0, n_reads) written).
 template <bool kCodes, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
                  const uint8_t* __restrict__ haps, int ly,
                  const int32_t* __restrict__ idx_ref,
-                 const int32_t* __restrict__ idx_alt,
+                 const int32_t* __restrict__ idx_alt, int per_read,
                  const int32_t* __restrict__ jlo,
                  const int32_t* __restrict__ jhi, size_t bound_stride,
                  int32_t* __restrict__ scores, int score_stride,
                  int8_t* __restrict__ codes,
                  typename Word<kWide>::T* __restrict__ scratch) {
-  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+  const size_t n_prob = per_read * static_cast<size_t>(n_reads);
   const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool live = p < n_prob;
-  const int read = live ? static_cast<int>(p >> 1) : 0;
-  const int which = static_cast<int>(p & 1);
+  const bool pair = per_read == 2;
+  const int read = live ? static_cast<int>(pair ? p >> 1 : p) : 0;
+  const int which = pair ? static_cast<int>(p & 1) : 0;
   int best = 0;
   if (live) {
     const int hidx = __ldg((which ? idx_alt : idx_ref) + read);
@@ -264,13 +270,13 @@ sw_banded_kernel(const uint8_t* __restrict__ reads, int n_reads, int lx,
 template <bool kCodes, bool kWide>
 void launch(unsigned blocks, cudaStream_t stream, const uint8_t* reads,
             int n_reads, int lx, const uint8_t* haps, int ly,
-            const int32_t* idx_ref, const int32_t* idx_alt,
+            const int32_t* idx_ref, const int32_t* idx_alt, int per_read,
             const int32_t* jlo, const int32_t* jhi, size_t bound_stride,
             int32_t* scores, int score_stride, int8_t* codes,
             void* scratch) {
   sw_banded_kernel<kCodes, kWide><<<blocks, kThreads, 0, stream>>>(
-      reads, n_reads, lx, haps, ly, idx_ref, idx_alt, jlo, jhi, bound_stride,
-      scores, score_stride, codes,
+      reads, n_reads, lx, haps, ly, idx_ref, idx_alt, per_read, jlo, jhi,
+      bound_stride, scores, score_stride, codes,
       static_cast<typename Word<kWide>::T*>(scratch));
 }
 
@@ -278,19 +284,25 @@ void launch(unsigned blocks, cudaStream_t stream, const uint8_t* reads,
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok).
-// reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; jlo, jhi: int32 [lx,
-// bound_stride], problem p's bounds in column p (p < 2 n_reads). Exactly
-// one of scores (int32 [2, score_stride], columns [0, n_reads) written)
-// and codes (int8 [n_reads]) is non-null. scratch: [2 ly, 2 n_reads]
-// words, uint32 or, with wide, uint64; none needed when lx <= 8 (one
-// strip). wide is needed from min(lx, ly) >= 65536.
+// Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok), or
+// cudaErrorInvalidValue for a per_read other than 1 or 2, or codes with
+// per_read 1. reads: uint8 [n_reads, lx]; haps: uint8 [*, ly]; idx_ref,
+// idx_alt: int32 [n_reads] (idx_alt unread when per_read == 1); jlo, jhi:
+// int32 [lx, bound_stride], problem p's bounds in column p (p < per_read
+// n_reads). Exactly one of scores (int32 [per_read, score_stride], columns
+// [0, n_reads) written) and codes (int8 [n_reads], per_read 2) is
+// non-null. scratch: [2 ly, per_read n_reads] words, uint32 or, with
+// wide, uint64; none needed when lx <= 8 (one strip). wide is needed from
+// min(lx, ly) >= 65536.
 int sw_banded_launch(const void* reads, int n_reads, int lx, const void* haps,
                      int ly, const void* idx_ref, const void* idx_alt,
-                     const void* jlo, const void* jhi, long long bound_stride,
-                     void* scores, int score_stride, void* codes,
-                     void* scratch, int wide, void* stream) {
-  const size_t n_prob = 2 * static_cast<size_t>(n_reads);
+                     int per_read, const void* jlo, const void* jhi,
+                     long long bound_stride, void* scores, int score_stride,
+                     void* codes, void* scratch, int wide, void* stream) {
+  if ((per_read != 1 && per_read != 2) || (codes && per_read != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t n_prob = per_read * static_cast<size_t>(n_reads);
   if (n_prob == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((n_prob + kThreads - 1) / kThreads);
@@ -300,7 +312,8 @@ int sw_banded_launch(const void* reads, int n_reads, int lx, const void* haps,
      static_cast<const uint8_t*>(reads), n_reads, lx,
      static_cast<const uint8_t*>(haps), ly,
      static_cast<const int32_t*>(idx_ref),
-     static_cast<const int32_t*>(idx_alt), static_cast<const int32_t*>(jlo),
+     static_cast<const int32_t*>(idx_alt), per_read,
+     static_cast<const int32_t*>(jlo),
      static_cast<const int32_t*>(jhi), static_cast<size_t>(bound_stride),
      static_cast<int32_t*>(scores), score_stride,
      static_cast<int8_t*>(codes), scratch);

@@ -1,14 +1,24 @@
 """Top-level driver: argv -> matrices on disk.
 
-The run of the reference `_main` (reference src/main.rs:163-418) with the
-native host runtime: validate the inputs, build the haplotypes, decode the
-BAM into columns (the whole file, or the chunks of one merged BAI/CSI
-region plan: --fetch), filter and join reads to variants, score every
-(read, haplotype) pair on the device, aggregate the call codes and write
-the matrices. --stream N windows decode, collect and score over groups of
-N variants; --checkpoint-dir keeps each variant's codes for a rerun;
---profile-dir writes a torch.profiler trace of the scoring phase. Callable
-in-process (`_main(argv)`) for tests.
+The run of the reference `_main` (reference src/main.rs:163-418):
+validate the inputs, build the haplotypes, decode the reads, filter and
+join them to variants, score every (read, haplotype) pair on the device,
+aggregate the calls and write the matrices. Callable in-process
+(`_main(argv)`) for tests.
+
+Two host runtimes (--host). The native one (the default) decodes a BAM
+into columns (the whole file, or the chunks of one merged BAI/CSI region
+plan: --fetch), or a CRAM into an in-memory BAM stream with libcramio (its
+.crai's containers for the variants, unless --fetch whole), and scores
+each read's (ref, alt) pair into one call code. --stream N windows decode,
+collect and score over groups of N variants of a BAM; --checkpoint-dir
+keeps each variant's codes for a rerun; --profile-dir writes a
+torch.profiler trace of the scoring phase. The Python one decodes record
+by record (io/bam.BamReader, io/bai.RegionStream under a region plan,
+io/cram.CramReader under a .crai container plan), scores plain (read,
+haplotype) rows and forms the calls per variant (core/calls.py), logging
+every read's alignment at --log-level debug; --stream, --checkpoint-dir
+and --profile-dir do not apply to it.
 
 Scoring runs on --device (default cuda) with --backend cuda (the
 hand-written kernel, default) or torch (the plain PyTorch version), in
@@ -22,6 +32,7 @@ from __future__ import annotations
 import logging
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -32,11 +43,14 @@ import torch
 
 from .cli import build_parser
 from .core import agg_numpy
+from .core import calls as calls_mod
 from .core.fast_pipeline import collect_reads_fast, score_all_fast
-from .core.pipeline import PipelineArgs, prepare_variants
-from .io.bai import plan_region_fetch
-from .io.bam import BamHeader
-from .io.bam_native import ColumnarBam
+from .core.pipeline import (PipelineArgs, collect_reads, prepare_variants,
+                            score_all)
+from .io.bai import RegionStream, plan_region_fetch
+from .io.bam import BamHeader, BamReader
+from .io.bam_native import ColumnarBam, CramDecodeError, cram_decode_native
+from .io.cram import CramReader, transcode_to_bam
 from .io.barcodes import load_barcodes, write_barcodes
 from .io.fasta import FastaIndex, IndexedFasta
 from .io.matrix_market import TriMat, write_matrix_market
@@ -120,6 +134,28 @@ def _is_cram(path: str) -> bool:
         return f.read(4) == b"CRAM"
 
 
+def open_reads(path: str, fasta_path: str):
+    """The input's reader, told apart by content as htslib does: a
+    CramReader for a CRAM (its records decode on demand), else the BAM's
+    header (BamHeader): the fetch strategy chosen later decodes a BAM's
+    records."""
+    if _is_cram(path):
+        return CramReader(path, fasta_path)
+    return BamHeader(path)
+
+
+class _CramRegions:
+    """A CramReader's records restricted to a .crai container plan."""
+
+    def __init__(self, cram: CramReader, offsets):
+        self.tid_by_name = cram.tid_by_name
+        self._cram = cram
+        self._offsets = offsets
+
+    def records(self):
+        return self._cram.records_for_containers(self._offsets)
+
+
 def write_variants(out_variants: str, vcf_file: str) -> None:
     with open(out_variants, "wt") as f:
         for rec in iter_vcf_records(vcf_file):
@@ -171,8 +207,6 @@ def _maybe_profile(profile_dir: Optional[str], device: str, phase: str):
 def _not_ported(args) -> List[str]:
     """The requested options whose path this package does not have yet."""
     asked = {
-        "--host python": args.host == "python",
-        "CRAM input": _is_cram(args.bam),
         "--device-agg": args.device_agg,
         "--mesh-devices": args.mesh_devices != 0,
         "--distributed": args.distributed is not None,
@@ -191,7 +225,8 @@ def plan_fetch(args, works, tid_by_name) -> Optional[list]:
     takes the region plan when it covers under AUTO_REGION_FRACTION of the
     file, and keeps the whole file on an empty plan with live variants
     (indistinguishable from a stub or foreign index). --fetch regions
-    takes any plan and exits 1 when no index is usable."""
+    takes any plan and exits 1 when no index is usable. (A CRAM's plan is
+    cram_containers'.)"""
     if args.fetch == "whole" or (
             args.fetch == "auto"
             and os.path.getsize(args.bam) < AUTO_REGION_BYTES):
@@ -209,6 +244,46 @@ def plan_fetch(args, works, tid_by_name) -> Optional[list]:
         log.error("--fetch regions requested but no usable BAM index")
         sys.exit(1)
     return None
+
+
+def cram_containers(args, bam: CramReader, works) -> Optional[list]:
+    """The offsets of the CRAM containers whose .crai entries overlap a
+    live variant, or None for every container (--fetch whole, or no valid
+    .crai)."""
+    if args.fetch == "whole":
+        return None
+    offs = bam.containers_for_loci(_loci(w for w in works if not w.skipped))
+    if offs is not None:
+        log.info("CRAM fetch plan: %d of %d containers", len(offs),
+                 len(bam.container_offsets()))
+    return offs
+
+
+def decode_cram(args, pargs, bam: CramReader, works):
+    """(ColumnarBam, route) of a CRAM on the native host: libcramio decodes
+    the planned containers into an in-memory BAM stream (route "native").
+    Where libcramio reports that it cannot decode the file, the Python
+    codec transcodes the same containers to a BAM (route "transcode"); a
+    failure to build or load libcramio raises."""
+    offs = cram_containers(args, bam, works)
+    threads = max(args.threads, 1)
+    try:
+        with _phase("cram-decode"):
+            stream = cram_decode_native(args.bam, args.fasta, offs, threads)
+    except CramDecodeError as exc:
+        log.info("%s; transcoding with the Python CRAM codec", exc)
+        loci = None if offs is None else _loci(
+            w for w in works if not w.skipped)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "transcoded.bam")
+            with _phase("cram-decode"):
+                transcode_to_bam(args.bam, path, args.fasta, loci=loci)
+            with _phase("decode"):
+                return (ColumnarBam(path, pargs.bam_tag.encode(), threads),
+                        "transcode")
+    with _phase("decode"):
+        return ColumnarBam(args.bam, pargs.bam_tag.encode(), threads,
+                           bam_bytes=stream), "native"
 
 
 def _stream_score(args, pargs, works, cell_barcodes, backend, tid_by_name):
@@ -323,6 +398,171 @@ def select_backend(device: str, backend: str, sw_mode: str):
     return sw_cuda.SwBackend(device, kernel=backend == "cuda")
 
 
+def _native_host(args, pargs, bam, works, cell_barcodes, backend, early,
+                 matrix: TriMat, ref_matrix: TriMat):
+    """Decode, collect, score and aggregate on the native host runtime;
+    adds the matrix triplets and returns (metrics, CRAM decode route or
+    None)."""
+    is_cram = isinstance(bam, CramReader)
+    cram_route = None
+    streamed = None
+    if args.stream > 0:
+        if is_cram:
+            log.info("--stream: a CRAM decodes the containers of its .crai "
+                     "plan instead; running monolithic")
+        elif args.checkpoint_dir:
+            log.info("--stream is incompatible with --checkpoint-dir; "
+                     "running monolithic")
+        else:
+            # one phase spans the windows' decode, collect and score: they
+            # overlap by design, so separate timers would double-count
+            with _phase("stream"), _maybe_profile(args.profile_dir,
+                                                  args.device, "stream"):
+                streamed = _stream_score(args, pargs, works, cell_barcodes,
+                                         backend, bam.tid_by_name)
+            if streamed is None:
+                log.info("--stream requested but no usable BAM index; "
+                         "running monolithic")
+    if streamed is not None:
+        read_idx, cells_l, umis_l, per_variant_codes, n_records = streamed
+        log.info("Decoded %d records (strategy: stream windows)", n_records)
+    else:
+        if is_cram:
+            cbam, cram_route = decode_cram(args, pargs, bam, works)
+            strategy = f"cram, {cram_route} decode"
+        else:
+            chunks = None if early is not None else plan_fetch(
+                args, works, bam.tid_by_name)
+            with _phase("decode"):
+                # the early decode's timer measures only the remaining wait
+                cbam = (early.result() if early is not None else
+                        ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                                    max(args.threads, 1), chunks=chunks))
+            strategy = cbam.loader
+        log.info("Decoded %d records (strategy: %s)", cbam.n, strategy)
+        with _phase("collect"):
+            read_idx, cells_l, umis_l = collect_reads_fast(
+                cbam, works, cell_barcodes, pargs)
+        with _phase("score"), _maybe_profile(args.profile_dir, args.device,
+                                             "score"):
+            if args.checkpoint_dir:
+                per_variant_codes = _score_checkpointed(
+                    args, cbam, works, read_idx, backend)
+            else:
+                per_variant_codes = score_all_fast(cbam, works, read_idx,
+                                                   backend)
+        del cbam
+    log.debug("Finished aligning reads for all variants")
+
+    metrics = Metrics()
+    for w in works:
+        if w._metrics is not None:  # lazy: untouched rows carry none
+            metrics.add(w._metrics)
+    with _phase("aggregate"):
+        g_rows, g_cols, ref_c, alt_c, unk_c = agg_numpy.aggregate_flat(
+            cells_l, umis_l, per_variant_codes, pargs.use_umi)
+    tot = (ref_c + alt_c + unk_c).astype(np.float64)
+    if args.scoring_method == "consensus":
+        vals = np.where((ref_c > 0) & (alt_c > 0), 3.0,
+                        np.where(alt_c > 0, 2.0,
+                                 np.where(ref_c > 0, 1.0, 0.0)))
+        keep = vals > 0
+        matrix.add_triplets(g_rows[keep], g_cols[keep], vals[keep])
+    elif args.scoring_method == "alt_frac":
+        with np.errstate(invalid="ignore", divide="ignore"):
+            vals = alt_c / tot  # 0/0 -> NaN preserved
+        matrix.add_triplets(g_rows, g_cols, vals)
+    elif args.scoring_method == "coverage":
+        matrix.add_triplets(g_rows, g_cols, alt_c)
+        ref_matrix.add_triplets(g_rows, g_cols, ref_c)
+    else:
+        raise ValueError("Scoring method is invalid")
+    if log.isEnabledFor(logging.INFO):
+        for r, c in zip(g_rows[unk_c > 1], g_cols[unk_c > 1]):
+            log.info("Variant at index %d has multiple unknown reads "
+                     "at barcode index %d. Check this locus manually",
+                     int(r), int(c))
+    return metrics, cram_route
+
+
+def _python_host(args, pargs, bam, works, cell_barcodes, backend,
+                 matrix: TriMat, ref_matrix: TriMat) -> Metrics:
+    """Collect, score and call on the Python record path; adds the matrix
+    triplets and returns the metrics. Records come from the CRAM's reader
+    (its .crai container plan unless --fetch whole), a RegionStream under
+    a BAM's region plan, or a whole-file BamReader; every (read,
+    haplotype) pair is scored as plain rows by the backend (core/pipeline.
+    score_all)."""
+    if isinstance(bam, CramReader):
+        offs = cram_containers(args, bam, works)
+        reads_src = bam if offs is None else _CramRegions(bam, offs)
+    else:
+        chunks = plan_fetch(args, works, bam.tid_by_name)
+        reads_src = (BamReader(args.bam) if chunks is None
+                     else RegionStream(args.bam, chunks))
+    try:
+        with _phase("collect"):
+            collect_reads(reads_src, works, cell_barcodes, pargs)
+    finally:
+        if isinstance(reads_src, RegionStream):
+            reads_src.close()
+    with _phase("score"):
+        per_variant_scores = score_all(works, backend)
+    if log.isEnabledFor(logging.DEBUG):
+        from .ops.sw_numpy import pretty_alignment
+        for w, sc in zip(works, per_variant_scores):
+            locus_str = f"{w.locus.chrom}:{w.locus.start}"
+            log.debug("Evaluating record %s", locus_str)
+            for k, (seq, qn) in enumerate(zip(w.read_seqs, w.qnames)):
+                log.debug("%s %s ref_aln:\n%s", locus_str, qn.decode(),
+                          pretty_alignment(seq, w.rref))
+                log.debug("%s %s alt_aln:\n%s", locus_str, qn.decode(),
+                          pretty_alignment(seq, w.alt_hap))
+                log.debug("%s %s ref_score: %d alt_score: %d", locus_str,
+                          qn.decode(), int(sc[k, 0]), int(sc[k, 1]))
+    log.debug("Finished aligning reads for all variants")
+
+    metrics = Metrics()
+    alt_t: tuple = ([], [], [])  # (rows, cols, values) in call order
+    ref_t: tuple = ([], [], [])
+
+    def put(t, i, res):
+        for j, r in res:
+            t[0].append(i)
+            t[1].append(j)
+            t[2].append(r)
+
+    with _phase("aggregate"):
+        for w, sc in zip(works, per_variant_scores):
+            if w._metrics is not None:
+                metrics.add(w._metrics)
+            # stable sort by cell_index (reference src/main.rs:932)
+            order = sorted(range(len(w.cell_indices)),
+                           key=lambda k: w.cell_indices[k])
+            scores = [
+                calls_mod.Scores(cell_index=w.cell_indices[k], umi=w.umis[k],
+                                 ref_score=int(sc[k, 0]),
+                                 alt_score=int(sc[k, 1]))
+                for k in order
+            ]
+            i = w.row
+            if args.scoring_method == "alt_frac":
+                put(alt_t, i, calls_mod.alt_frac(scores, i, pargs.use_umi))
+            elif args.scoring_method == "consensus":
+                put(alt_t, i, calls_mod.consensus_scoring(scores, i,
+                                                          pargs.use_umi))
+            elif args.scoring_method == "coverage":
+                alt_res, ref_res = calls_mod.coverage(scores, i,
+                                                      pargs.use_umi)
+                put(alt_t, i, alt_res)
+                put(ref_t, i, ref_res)
+            else:
+                raise ValueError("Scoring method is invalid")
+        matrix.add_triplets(*alt_t)
+        ref_matrix.add_triplets(*ref_t)
+    return metrics
+
+
 def _main(argv: List[str]) -> None:
     """Full run. argv excludes the program name (pass sys.argv[1:])."""
     args = build_parser().parse_args(argv)
@@ -354,7 +594,7 @@ def _main(argv: List[str]) -> None:
     ref_matrix = TriMat((num_vars, len(cell_barcodes)))
 
     with _phase("validate"):
-        bam = BamHeader(args.bam)
+        bam = open_reads(args.bam, args.fasta)
         fasta = IndexedFasta(args.fasta)
         validate_inputs(records, bam, fasta.index)
 
@@ -377,9 +617,12 @@ def _main(argv: List[str]) -> None:
     # the whole-file decode reads only the BAM and the haplotypes only the
     # FASTA and VCF, so once whole-file is settled (--fetch whole, or auto
     # below AUTO_REGION_BYTES; no --stream) the decode runs on a worker
-    # thread meanwhile. A region plan needs the haplotypes' windows first.
+    # thread meanwhile. A region plan needs the haplotypes' windows first,
+    # and a CRAM's decode its container plan.
+    python_host = args.host == "python"
+    native_bam = not (python_host or isinstance(bam, CramReader))
     early = None
-    if args.stream == 0 and (
+    if native_bam and args.stream == 0 and (
             args.fetch == "whole"
             or (args.fetch == "auto"
                 and os.path.getsize(args.bam) < AUTO_REGION_BYTES)):
@@ -390,81 +633,29 @@ def _main(argv: List[str]) -> None:
     with _phase("haplotypes"):
         works = prepare_variants(records, fasta, pargs, row_range=row_range)
 
-    launches = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
-                sw_cuda.BAND_LAUNCHES, sw_cuda.INDEX_LAUNCHES)
-    streamed = None
-    if args.stream > 0:
-        if args.checkpoint_dir:
-            log.info("--stream is incompatible with --checkpoint-dir; "
-                     "running monolithic")
-        else:
-            # one phase spans the windows' decode, collect and score: they
-            # overlap by design, so separate timers would double-count
-            with _phase("stream"), _maybe_profile(args.profile_dir,
-                                                  args.device, "stream"):
-                streamed = _stream_score(args, pargs, works, cell_barcodes,
-                                         backend, bam.tid_by_name)
-            if streamed is None:
-                log.info("--stream requested but no usable BAM index; "
-                         "running monolithic")
-    if streamed is not None:
-        read_idx, cells_l, umis_l, per_variant_codes, n_records = streamed
-        log.info("Decoded %d records (strategy: stream windows)", n_records)
-    else:
-        chunks = None if early is not None else plan_fetch(
-            args, works, bam.tid_by_name)
-        with _phase("decode"):
-            # the early decode's timer measures only the remaining wait
-            cbam = (early.result() if early is not None else
-                    ColumnarBam(args.bam, pargs.bam_tag.encode(),
-                                max(args.threads, 1), chunks=chunks))
-        log.info("Decoded %d records (strategy: %s)", cbam.n, cbam.loader)
-        with _phase("collect"):
-            read_idx, cells_l, umis_l = collect_reads_fast(
-                cbam, works, cell_barcodes, pargs)
-        with _phase("score"), _maybe_profile(args.profile_dir, args.device,
-                                             "score"):
-            if args.checkpoint_dir:
-                per_variant_codes = _score_checkpointed(
-                    args, cbam, works, read_idx, backend)
-            else:
-                per_variant_codes = score_all_fast(cbam, works, read_idx,
-                                                   backend)
-        del cbam
-    launches = {"sw_pair": sw_cuda.LAUNCHES - launches[0],
-                "sw_banded": sw_cuda.BANDED_LAUNCHES - launches[1],
-                "band_build": sw_cuda.BAND_LAUNCHES - launches[2],
-                "band_index": sw_cuda.INDEX_LAUNCHES - launches[3]}
-    log.debug("Finished aligning reads for all variants")
+    def counts():  # each kernel's launches, both its modes together
+        return (sw_cuda.LAUNCHES,
+                sw_cuda.BANDED_LAUNCHES + sw_cuda.BANDED_ROW_LAUNCHES,
+                sw_cuda.BAND_LAUNCHES + sw_cuda.BAND_ROW_LAUNCHES,
+                sw_cuda.INDEX_LAUNCHES)
 
-    metrics = Metrics()
-    for w in works:
-        if w._metrics is not None:  # lazy: untouched rows carry none
-            metrics.add(w._metrics)
-    with _phase("aggregate"):
-        g_rows, g_cols, ref_c, alt_c, unk_c = agg_numpy.aggregate_flat(
-            cells_l, umis_l, per_variant_codes, pargs.use_umi)
-    tot = (ref_c + alt_c + unk_c).astype(np.float64)
-    if args.scoring_method == "consensus":
-        vals = np.where((ref_c > 0) & (alt_c > 0), 3.0,
-                        np.where(alt_c > 0, 2.0,
-                                 np.where(ref_c > 0, 1.0, 0.0)))
-        keep = vals > 0
-        matrix.add_triplets(g_rows[keep], g_cols[keep], vals[keep])
-    elif args.scoring_method == "alt_frac":
-        with np.errstate(invalid="ignore", divide="ignore"):
-            vals = alt_c / tot  # 0/0 -> NaN preserved
-        matrix.add_triplets(g_rows, g_cols, vals)
-    elif args.scoring_method == "coverage":
-        matrix.add_triplets(g_rows, g_cols, alt_c)
-        ref_matrix.add_triplets(g_rows, g_cols, ref_c)
+    before = counts()
+    cram_route = None
+    if python_host:
+        for flag, on in (("--stream", args.stream > 0),
+                         ("--checkpoint-dir", args.checkpoint_dir),
+                         ("--profile-dir", args.profile_dir)):
+            if on:
+                log.info("%s applies to the native host; --host python "
+                         "runs without it", flag)
+        metrics = _python_host(args, pargs, bam, works, cell_barcodes,
+                               backend, matrix, ref_matrix)
     else:
-        raise ValueError("Scoring method is invalid")
-    if log.isEnabledFor(logging.INFO):
-        for r, c in zip(g_rows[unk_c > 1], g_cols[unk_c > 1]):
-            log.info("Variant at index %d has multiple unknown reads "
-                     "at barcode index %d. Check this locus manually",
-                     int(r), int(c))
+        metrics, cram_route = _native_host(args, pargs, bam, works,
+                                           cell_barcodes, backend, early,
+                                           matrix, ref_matrix)
+    launches = dict(zip(("sw_pair", "sw_banded", "band_build", "band_index"),
+                        (b - a for a, b in zip(before, counts()))))
     log.debug("Finished scoring alignments for all variants")
 
     log_metrics(log, metrics)
@@ -499,13 +690,16 @@ def _main(argv: List[str]) -> None:
             "config": {
                 "scoring_method": args.scoring_method, "umi": args.umi,
                 "device": args.device, "backend": args.backend,
-                "host": "native", "sw_mode": args.sw_mode,
+                "host": "python" if python_host else "native",
+                "sw_mode": args.sw_mode,
                 "fetch": args.fetch, "threads": args.threads,
                 "padding": args.padding,
             },
         }
         if args.scoring_method == "coverage":
             payload["ref_matrix_nnz"] = ref_matrix.nnz()
+        if cram_route is not None:
+            payload["cram_decode"] = cram_route
         with open(args.metrics_json, "wt") as f:
             json.dump(payload, f, indent=1)
         log.debug("Wrote metrics JSON")

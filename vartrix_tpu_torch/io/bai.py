@@ -9,9 +9,12 @@ reference src/main.rs:822-826):
     linear index; CSI: the same with any (min_shift, depth), BGZF-wrapped;
   * reg2bins candidate-bin enumeration;
   * one merged chunk plan over every variant window, which the native
-    columnar loader decodes (io/bam_native.py ColumnarBam(chunks=));
+    columnar loader decodes (io/bam_native.py ColumnarBam(chunks=)) and
+    the Python record path streams (RegionStream over LazyBgzf, a
+    random-access BGZF reader);
   * build_bai / build_csi, the `samtools index` capability, and its CLI:
-    ``python -m vartrix_tpu_torch.io.bai FILE [...]``.
+    ``python -m vartrix_tpu_torch.io.bai FILE [...]``, which writes a .crai
+    for a CRAM (io/cram.write_crai).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from __future__ import annotations
 import bisect
 import os
 import struct
-import sys
+import zlib
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Tuple
 
-from .bam import bgzf_decompress
+from .bam import (BamRecord, _decode_record, _header_end, bgzf_decompress,
+                  parse_header)
 from .bam_writer import _reg2bin, bgzf_compress
 
 
@@ -149,6 +154,147 @@ class BaiIndex:
                 if ce > min_off:
                     chunks.append((max(cb, min_off), ce))
         return _merge_sorted(chunks)
+
+
+class LazyBgzf:
+    """Random-access BGZF reader with an LRU block cache."""
+
+    def __init__(self, path: str, cache_blocks: int = 64):
+        self._f = open(path, "rb")
+        self._cache: OrderedDict[int, Tuple[bytes, int]] = OrderedDict()
+        self._cache_blocks = cache_blocks
+
+    def close(self):
+        self._f.close()
+
+    def block(self, coffset: int) -> Tuple[bytes, int]:
+        """-> (inflated payload, next block's coffset)."""
+        hit = self._cache.get(coffset)
+        if hit is not None:
+            self._cache.move_to_end(coffset)
+            return hit
+        f = self._f
+        f.seek(coffset)
+        header = f.read(18)
+        if len(header) < 18:
+            return b"", coffset
+        xlen = struct.unpack_from("<H", header, 10)[0]
+        extra = header[12:] + f.read(xlen - 6) if xlen > 6 else header[12:12 + xlen]
+        bsize = None
+        xoff = 0
+        while xoff + 4 <= len(extra):
+            si1, si2 = extra[xoff], extra[xoff + 1]
+            slen = struct.unpack_from("<H", extra, xoff + 2)[0]
+            if si1 == 66 and si2 == 67 and slen == 2:
+                bsize = struct.unpack_from("<H", extra, xoff + 4)[0] + 1
+            xoff += 4 + slen
+        if bsize is None:
+            raise ValueError("BGZF block without BC subfield")
+        cdata = f.read(bsize - 12 - xlen - 8)
+        payload = zlib.decompress(cdata, wbits=-15)
+        entry = (payload, coffset + bsize)
+        self._cache[coffset] = entry
+        if len(self._cache) > self._cache_blocks:
+            self._cache.popitem(last=False)
+        return entry
+
+    def read_at(self, voffset: int, n: int) -> bytes:
+        """Read n uncompressed bytes starting at a virtual offset."""
+        coffset, uoffset = voffset >> 16, voffset & 0xFFFF
+        out = bytearray()
+        while len(out) < n:
+            payload, nxt = self.block(coffset)
+            if not payload and nxt == coffset:
+                break
+            out += payload[uoffset : uoffset + (n - len(out))]
+            coffset, uoffset = nxt, 0
+        return bytes(out)
+
+
+class IndexedBamReader:
+    """BAM reader that fetches a region through its BAI/CSI index,
+    inflating only the BGZF blocks the region's chunks touch."""
+
+    def __init__(self, bam_path: str, bai_path: str | None = None):
+        if bai_path is None:
+            bai_path = bam_path + ".bai"
+            if not os.path.exists(bai_path) and os.path.exists(bam_path + ".csi"):
+                bai_path = bam_path + ".csi"
+        if bai_path.endswith(".csi"):
+            self.index: "BaiIndex | CsiIndex" = CsiIndex(bai_path)
+        else:
+            self.index = BaiIndex(bai_path)
+        self._bgzf = LazyBgzf(bam_path)
+        # the header from the stream's start, read until it is whole
+        n = 1 << 16
+        hdr = self._bgzf.read_at(0, n)
+        while _header_end(hdr) < 0 and len(hdr) == n:
+            n *= 2
+            hdr = self._bgzf.read_at(0, n)
+        self.ref_names, self.ref_lens, _ = parse_header(hdr, bam_path)
+        self.tid_by_name = {nm: i for i, nm in enumerate(self.ref_names)}
+
+    def close(self):
+        self._bgzf.close()
+
+    def _records_in_chunk(self, cb: int, ce: int) -> Iterator[BamRecord]:
+        """Decode every record in the virtual-offset range [cb, ce)."""
+        voff = cb
+        while voff < ce:
+            head = self._bgzf.read_at(voff, 4)
+            if len(head) < 4:
+                break
+            bs = struct.unpack_from("<i", head, 0)[0]
+            buf = self._bgzf.read_at(voff, 4 + bs)[4:]
+            rec = _decode_record(buf)
+            # advance the virtual offset past this record
+            coffset, uoffset = voff >> 16, voff & 0xFFFF
+            remaining = 4 + bs
+            while remaining > 0:
+                payload, nxt = self._bgzf.block(coffset)
+                avail = len(payload) - uoffset
+                if avail > remaining:
+                    uoffset += remaining
+                    remaining = 0
+                else:
+                    remaining -= avail
+                    coffset, uoffset = nxt, 0
+            voff = (coffset << 16) | uoffset
+            yield rec
+
+    def fetch(self, chrom: str, start: int, end: int) -> Iterator[BamRecord]:
+        """Records overlapping [start, end) on chrom, in file order."""
+        tid = self.tid_by_name.get(chrom)
+        if tid is None:
+            raise KeyError(f"chromosome {chrom} not in BAM header")
+        for cb, ce in self.index.chunks_for_region(tid, start, end):
+            for rec in self._records_in_chunk(cb, ce):
+                if rec.tid != tid or rec.pos >= end:
+                    if rec.tid > tid or (rec.tid == tid and rec.pos >= end):
+                        break
+                    continue
+                if rec.endpos() > start:
+                    yield rec
+
+
+class RegionStream:
+    """A BamReader-like record stream that decodes only the blocks of a
+    merged chunk plan: the Python host path's region fetch (the native
+    path's is ColumnarBam(chunks=))."""
+
+    def __init__(self, bam_path: str, chunks):
+        self._r = IndexedBamReader(bam_path)
+        self._chunks = chunks
+        self.ref_names = self._r.ref_names
+        self.ref_lens = self._r.ref_lens
+        self.tid_by_name = self._r.tid_by_name
+
+    def close(self):
+        self._r.close()
+
+    def records(self) -> Iterator[BamRecord]:
+        for cb, ce in self._chunks:
+            yield from self._r._records_in_chunk(cb, ce)
 
 
 def merge_chunk_lists(chunk_lists, gap_bytes: int = 16384):
@@ -376,24 +522,26 @@ def build_csi(bam_path: str, csi_path: str | None = None,
 
 def index_main(argv=None) -> None:
     """CLI: python -m vartrix_tpu_torch.io.bai FILE [...] — builds a .bai
-    for each BAM, like `samtools index`. CRAM files (their .crai) are not
-    ported yet: the run exits 1 on one."""
+    for each BAM and a .crai for each CRAM (told apart by content), like
+    `samtools index`."""
     import argparse
 
     p = argparse.ArgumentParser(
-        prog="vartrix-index", description="Build a BAI index for BAM files")
-    p.add_argument("files", nargs="+", help="BAM files to index")
+        prog="vartrix-index",
+        description="Build a BAI (BAM) or CRAI (CRAM) index")
+    p.add_argument("files", nargs="+", help="BAM/CRAM files to index")
     p.add_argument("-f", "--fasta", default=None,
-                   help="Reference FASTA (CRAM only; not yet ported)")
+                   help="Reference FASTA (CRAM with reference-based "
+                        "compression only)")
     args = p.parse_args(argv)
     for path in args.files:
         with open(path, "rb") as f:
             magic = f.read(4)
         if magic == b"CRAM":
-            print(f"{path}: CRAM indexing (.crai) is not yet ported",
-                  file=sys.stderr)
-            sys.exit(1)
-        out = build_bai(path)
+            from .cram import write_crai
+            out = write_crai(path, fasta_path=args.fasta)
+        else:
+            out = build_bai(path)
         print(f"{path} -> {out}")
 
 

@@ -1,7 +1,8 @@
-"""ctypes wrapper for libgenomio (native/genomio.cpp): parallel BAM decode
-into columnar NumPy arrays (the whole file, or only the chunks of an
-indexed region plan), padded sequence gathers for the scoring batches,
-and Matrix Market body formatting.
+"""ctypes wrappers for libgenomio (native/genomio.cpp): parallel BAM decode
+into columnar NumPy arrays (the whole file, only the chunks of an indexed
+region plan, or an in-memory BAM stream), padded sequence gathers for the
+scoring batches, and Matrix Market body formatting; and for libcramio
+(native/cramio.cpp), which decodes a CRAM into such a stream.
 
 One call decodes BGZF and all records into structure-of-arrays buffers
 (positions, flags, decoded sequences, aligned-reference intervals, CB/UB
@@ -17,9 +18,10 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops._build import genomio_library
+from ..ops._build import cramio_library, genomio_library
 
 _lib: Optional[ctypes.CDLL] = None
+_cram_lib: Optional[ctypes.CDLL] = None
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -48,6 +50,9 @@ def get_lib() -> ctypes.CDLL:
         lib.gio_bam_load_regions.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, _I64P,
             ctypes.c_int64]
+        lib.gio_bam_load_bytes.restype = vp
+        lib.gio_bam_load_bytes.argtypes = [_U8P, ctypes.c_int64,
+                                           ctypes.c_char_p, ctypes.c_int]
         lib.gio_bam_load_stream.restype = vp
         lib.gio_bam_load_stream.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int64]
@@ -99,6 +104,63 @@ def get_lib() -> ctypes.CDLL:
         lib.gio_buf_free.argtypes = [vp]
         _lib = lib
     return _lib
+
+
+class CramDecodeError(RuntimeError):
+    """libcramio's own report that it cannot decode a CRAM (a codec or
+    feature it does not implement, or a malformed file)."""
+
+
+def get_cram_lib() -> ctypes.CDLL:
+    """libcramio, built at first use; a failed build raises."""
+    global _cram_lib
+    if _cram_lib is None:
+        lib = ctypes.CDLL(cramio_library())
+        vp = ctypes.c_void_p
+        lib.cram_decode.restype = vp
+        lib.cram_decode.argtypes = [ctypes.c_char_p, ctypes.c_char_p, _I64P,
+                                    ctypes.c_int64, ctypes.c_int]
+        lib.cram_bam_data.restype = _U8P
+        lib.cram_bam_data.argtypes = [vp]
+        lib.cram_bam_len.restype = ctypes.c_int64
+        lib.cram_bam_len.argtypes = [vp]
+        lib.cram_bam_error.restype = ctypes.c_char_p
+        lib.cram_bam_error.argtypes = [vp]
+        lib.cram_bam_free.argtypes = [vp]
+        _cram_lib = lib
+    return _cram_lib
+
+
+def cram_decode_native(path: str, fasta_path: Optional[str],
+                       offsets=None, n_threads: int = 0) -> np.ndarray:
+    """Decode a CRAM into a raw (not BGZF) BAM byte stream, uint8 [n], with
+    libcramio. offsets: container byte offsets to decode (the .crai plan;
+    an empty list decodes none), or None for every container. Raises
+    CramDecodeError with the library's message when it cannot decode the
+    file."""
+    lib = get_cram_lib()
+    offp, noff = None, 0
+    if offsets is not None:
+        o = np.ascontiguousarray(offsets, dtype=np.int64)
+        noff = len(o)
+        if noff == 0:
+            # an empty plan decodes nothing, unlike None (every container):
+            # the pointer stays non-null so the library tells them apart
+            o = np.zeros(1, dtype=np.int64)
+        offp = o.ctypes.data_as(_I64P)
+    h = lib.cram_decode(path.encode(), (fasta_path or "").encode(), offp,
+                        ctypes.c_int64(noff), ctypes.c_int(_threads(n_threads)))
+    try:
+        err = lib.cram_bam_error(h)
+        if err:
+            raise CramDecodeError(f"native CRAM decode: {err.decode()}")
+        n = int(lib.cram_bam_len(h))
+        if n == 0:
+            return np.zeros(0, np.uint8)
+        # not ctypes.string_at, whose C int size cuts streams past 2 GB
+        return np.ctypeslib.as_array(lib.cram_bam_data(h), shape=(n,)).copy()
+    finally:
+        lib.cram_bam_free(h)
 
 
 def _threads(n_threads: int) -> int:
@@ -174,16 +236,26 @@ class ColumnarBam:
     """Columnar view of a decoded BAM: the whole file, or (with `chunks`, an
     [n, 2] array of BAI/CSI virtual-offset ranges) only the records the
     indexed region plan touches, with memory bounded by the plan instead
-    of the file size. `loader` names the decode taken: "regions", "bounded"
-    (the bounded-memory whole-file loader, from STREAM_DECODE_BYTES) or
-    "whole"."""
+    of the file size; or, with `bam_bytes` (a raw BAM stream, bytes or
+    uint8 array: cram_decode_native's output), that stream, `path` then
+    only naming the input in errors. `loader` names the decode taken:
+    "bytes", "regions", "bounded" (the bounded-memory whole-file loader,
+    from STREAM_DECODE_BYTES) or "whole"."""
 
     def __init__(self, path: str, cb_tag: bytes = b"CB", n_threads: int = 0,
-                 chunks=None):
+                 chunks=None, bam_bytes=None):
         lib = get_lib()
         self._lib = lib
         nt = _threads(n_threads)
-        if chunks is not None:
+        if bam_bytes is not None:
+            arr = np.frombuffer(bam_bytes, dtype=np.uint8) if isinstance(
+                bam_bytes, (bytes, bytearray)) else np.ascontiguousarray(
+                    bam_bytes, dtype=np.uint8)
+            self.loader = "bytes"
+            self._h = lib.gio_bam_load_bytes(
+                arr.ctypes.data_as(_U8P), ctypes.c_int64(len(arr)), cb_tag,
+                nt)
+        elif chunks is not None:
             c = np.ascontiguousarray(chunks, dtype=np.int64).reshape(-1, 2)
             self.loader = "regions"
             self._h = lib.gio_bam_load_regions(

@@ -6,7 +6,8 @@ bit, as the port's host copy csrc/band_bounds.cpp (ops/sw_native.py) and
 the JAX package's banded_bounds_batch_native.
 
 Problem p scores read p // 2 against haplotype row idx_ref[p // 2] (p
-even) or idx_alt[p // 2] (p odd). Per problem, with the true lengths len_x
+even) or idx_alt[p // 2] (p odd); without idx_alt (plain rows), read p
+against idx_ref[p]. Per problem, with the true lengths len_x
 (up to the read's last byte that is not 0) and len_y (up to the
 haplotype's last byte that is not 1):
   * len_x or len_y 0: every row empty;
@@ -39,7 +40,7 @@ workers) would spin against each other.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -124,13 +125,14 @@ def _one_cpu_thread(device: torch.device):
 
 
 def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
-                idx_ref: torch.Tensor, idx_alt: torch.Tensor
+                idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chained-band bounds of each read against its ref and alt haplotype
     rows. reads: uint8 [R, lx] (pad 0); hap_mat: uint8 [H, ly] (pad 1);
     idx_ref, idx_alt: int32 [R] rows of hap_mat. Returns (jlo, jhi), int32
     [lx, 2R]: column interval [jlo, jhi) of each read row, problem 2r the
-    ref and 2r + 1 the alt of read r."""
+    ref and 2r + 1 the alt of read r. Without idx_alt, int32 [lx, R]:
+    problem r is read r against row idx_ref[r]."""
     with _one_cpu_thread(reads.device):
         return _band_bounds(reads, hap_mat, idx_ref, idx_alt)
 
@@ -138,14 +140,16 @@ def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
 def _band_bounds(reads, hap_mat, idx_ref, idx_alt):
     R, lx = reads.shape
     dev = reads.device
-    P = 2 * R
+    per_read = 1 if idx_alt is None else 2
+    P = per_read * R
     jlo = torch.zeros((P, lx), dtype=torch.int64, device=dev)
     jhi = torch.zeros((P, lx), dtype=torch.int64, device=dev)
     if P and lx:
-        idx = torch.stack([idx_ref, idx_alt], dim=1).reshape(-1).long()
+        idx = (idx_ref.long() if idx_alt is None else
+               torch.stack([idx_ref, idx_alt], dim=1).reshape(-1).long())
         read_len = true_lengths(reads, 0)
         hap_len = true_lengths(hap_mat, 1)
-        len_x = read_len.repeat_interleave(2)
+        len_x = read_len.repeat_interleave(per_read)
         len_y = hap_len[idx]
         some = (len_x > 0) & (len_y > 0)
         short = some & ((len_x < K) | (len_y < K))
@@ -160,7 +164,8 @@ def _band_bounds(reads, hap_mat, idx_ref, idx_alt):
             g = max(1, _GROUP_CELLS.get(dev.type, 1 << 25) // max(per, 1))
             for s in range(0, len(chained), g):
                 p = chained[s : s + g]
-                lo, hi = _chain_group(read_keys[p // 2], hap_keys[idx[p]],
+                lo, hi = _chain_group(read_keys[p // per_read],
+                                      hap_keys[idx[p]],
                                       len_x[p], len_y[p], lx)
                 jlo[p], jhi[p] = lo, hi
     return (jlo.T.to(torch.int32).contiguous(),

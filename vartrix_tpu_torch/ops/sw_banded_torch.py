@@ -74,7 +74,7 @@ def banded_scores(x: torch.Tensor, y: torch.Tensor, jlo: torch.Tensor,
         f = torch.where(band, f, neg)
         best = torch.maximum(best, h.amax(dim=1))
         h2, h1 = h1, h
-    return best
+    return best.to(torch.int32)
 
 
 def banded_pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,

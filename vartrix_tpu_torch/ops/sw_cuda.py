@@ -14,17 +14,23 @@ past that, with a 32-bit scratch word up to 65,535 and a 64-bit one from
 (wide_word). Every wrapper cuts a launch into ranges whose scratch fits a
 fixed budget (read_ranges, band_ranges) and writes them into one output.
 
+The banded kernels, like sw_pair, take two layouts of problems: a read's
+(ref, alt) pair (per_read 2, the native host path) and plain rows, read p
+against haplotype row p (per_read 1: the Python host path, K4's own entry);
+a wrapper given no idx_alt takes plain rows.
+
 `SwBackend` is the duck-typed backend contract of the pipeline: calling it
-scores plain (x, y) rows, `.pair_chained` returns (ref, alt) scores and
-`.pair_calls_chained` (the default route) returns one int8 call code per
-read. It chunks each shape bucket into launches of CHUNK_READS reads,
-shipping reads as 2-bit codes while every read of the bucket is A/C/G/T
-and as dense bytes from the first chunk that is not. `BandedSwBackend`
-(--sw-mode banded) has the default route only: per shape bucket it builds
-the haplotypes' k-mer index once on the device (band_index), then per
-chunk it ships dense reads and indices, builds both problems' band bounds
-on the device (band_bounds) and scores them there; no band stage runs on
-the host.
+scores plain (x, y) rows (core/pipeline.score_all, the Python host path),
+`.pair_chained` returns (ref, alt) scores and `.pair_calls_chained` (the
+native host path's default route) returns one int8 call code per read. It
+chunks each shape bucket into launches of CHUNK_READS reads, shipping reads
+as 2-bit codes while every read of the bucket is A/C/G/T and as dense bytes
+from the first chunk that is not. `BandedSwBackend` (--sw-mode banded)
+scores plain rows when called (banded_batch_scores) and has the default
+pair route: per shape bucket it builds the haplotypes' k-mer index once on
+the device (band_index), then per chunk it ships dense reads and indices,
+builds both problems' band bounds on the device (band_bounds) and scores
+them there; no band stage runs on the host.
 """
 
 from __future__ import annotations
@@ -62,12 +68,16 @@ BANDED_STRIP = 8
 BAND_WIDE_KEYS_LX = 1 << 25
 
 # kernel launches (sw_pair, sw_banded: one per read range; band_build: one
-# per chain-pass range; band_index: one per index) since the last reset;
-# the smoke check zeroes them before driving a path and reads them after
+# per chain-pass range; band_index: one per index) since the last reset,
+# sw_banded's and band_build's in their pair mode and, apart, in their
+# plain-row mode (*_ROW_*); the smoke check zeroes them before driving a
+# path and reads them after
 LAUNCHES = 0
 BANDED_LAUNCHES = 0
 BAND_LAUNCHES = 0
 INDEX_LAUNCHES = 0
+BANDED_ROW_LAUNCHES = 0
+BAND_ROW_LAUNCHES = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _banded_lib: Optional[ctypes.CDLL] = None
@@ -94,8 +104,8 @@ def _banded_kernel() -> ctypes.CDLL:
         lib = ctypes.CDLL(banded_kernel_library())
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.sw_banded_launch.restype = ci
-        lib.sw_banded_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, vp, vp,
-                                         cl, vp, ci, vp, vp, ci, vp]
+        lib.sw_banded_launch.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, vp,
+                                         vp, cl, vp, ci, vp, vp, ci, vp]
         lib.sw_banded_error_string.restype = ctypes.c_char_p
         lib.sw_banded_error_string.argtypes = [ci]
         _banded_lib = lib
@@ -110,12 +120,12 @@ def _band_kernel() -> ctypes.CDLL:
         lib.band_index_build.restype = ci
         lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
         lib.band_build_count.restype = ci
-        lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp,
-                                         vp, vp]
+        lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
+                                         vp, vp, vp]
         lib.band_build_chain.restype = ci
-        lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp,
-                                         vp, cl, cl, vp, vp, vp, vp, vp, vp,
-                                         vp, ci, vp]
+        lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
+                                         vp, vp, cl, cl, vp, vp, vp, vp, vp,
+                                         vp, vp, ci, vp]
         lib.band_build_error_string.restype = ctypes.c_char_p
         lib.band_build_error_string.argtypes = [ci]
         _band_lib = lib
@@ -318,42 +328,61 @@ def batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _launch(x, None, y, ident, ident, 1, False)[0]
 
 
+def _check_problems(reads: torch.Tensor, idx_ref: torch.Tensor,
+                    idx_alt: Optional[torch.Tensor]) -> int:
+    """per_read of a banded launch: 2 with idx_alt (a read's ref and alt),
+    1 without (read p against idx_ref[p]); checks the index lengths."""
+    dev = reads.device
+    R = reads.shape[0]
+    _check(idx_ref, "idx_ref", torch.int32, 1, dev)
+    if idx_alt is not None:
+        _check(idx_alt, "idx_alt", torch.int32, 1, dev)
+    if idx_ref.shape[0] != R or (idx_alt is not None
+                                 and idx_alt.shape[0] != R):
+        raise ValueError("idx_ref and idx_alt must have one entry per read")
+    return 1 if idx_alt is None else 2
+
+
 def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
-                   idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                   idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
                    jlo: torch.Tensor, jhi: torch.Tensor,
                    codes: bool) -> torch.Tensor:
     """Validate, allocate and launch the banded kernel on the current
-    stream."""
-    global BANDED_LAUNCHES
+    stream; plain rows (per_read 1) when idx_alt is None."""
+    global BANDED_LAUNCHES, BANDED_ROW_LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
-    _check(idx_ref, "idx_ref", torch.int32, 1, dev)
-    _check(idx_alt, "idx_alt", torch.int32, 1, dev)
     _check(jlo, "jlo", torch.int32, 2, dev)
     _check(jhi, "jhi", torch.int32, 2, dev)
+    per_read = _check_problems(reads, idx_ref, idx_alt)
+    if codes and per_read != 2:
+        raise ValueError("call codes need each read's (ref, alt) pair")
     R, lx = reads.shape
     ly = hap_mat.shape[1]
-    if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
-        raise ValueError("idx_ref and idx_alt must have one entry per read")
-    if jlo.shape != (lx, 2 * R) or jhi.shape != jlo.shape:
-        raise ValueError(f"jlo and jhi must be [{lx}, {2 * R}] (one "
+    P = per_read * R
+    if jlo.shape != (lx, P) or jhi.shape != jlo.shape:
+        raise ValueError(f"jlo and jhi must be [{lx}, {P}] (one "
                          "column per problem), got "
                          f"{list(jlo.shape)} and {list(jhi.shape)}")
     lib = _banded_kernel()
-    out, scores_ptr, codes_ptr = _output(R, 2, codes, dev)
-    ranges = read_ranges(R, lx, ly, 2, DP_SCRATCH_BYTES, banded=True)
+    out, scores_ptr, codes_ptr = _output(R, per_read, codes, dev)
+    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES, banded=True)
     if not ranges:
         return out
-    scratch = _scratch(2 * (ranges[0][1] - ranges[0][0]),
+    scratch = _scratch(per_read * (ranges[0][1] - ranges[0][0]),
                        dp_scratch_bytes(lx, ly, True), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    alt_ptr = None if idx_alt is None else idx_alt.data_ptr()
     for r0, r1 in ranges:
-        # problems 2 r0 .. 2 r1 - 1: columns of the bounds, 4 bytes each
+        # problems per_read r0 .. per_read r1 - 1: columns of the bounds,
+        # 4 bytes each
         err = lib.sw_banded_launch(
             reads.data_ptr() + r0 * lx, r1 - r0, lx, hap_mat.data_ptr(), ly,
-            idx_ref.data_ptr() + 4 * r0, idx_alt.data_ptr() + 4 * r0,
-            jlo.data_ptr() + 8 * r0, jhi.data_ptr() + 8 * r0, 2 * R,
+            idx_ref.data_ptr() + 4 * r0,
+            None if alt_ptr is None else alt_ptr + 4 * r0, per_read,
+            jlo.data_ptr() + 4 * per_read * r0,
+            jhi.data_ptr() + 4 * per_read * r0, P,
             scores_ptr + 4 * r0 if scores_ptr else None, R,
             codes_ptr + r0 if codes_ptr else None,
             None if scratch is None else scratch.data_ptr(),
@@ -361,7 +390,10 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
         if err != 0:
             raise RuntimeError("sw_banded kernel launch failed: "
                                + lib.sw_banded_error_string(err).decode())
-        BANDED_LAUNCHES += 1
+        if per_read == 2:
+            BANDED_LAUNCHES += 1
+        else:
+            BANDED_ROW_LAUNCHES += 1
     return out
 
 
@@ -387,6 +419,41 @@ def banded_pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
         return sw_banded_torch.banded_pair_calls(reads, hap_mat, idx_ref,
                                                  idx_alt, jlo, jhi)
     return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, True)
+
+
+def banded_scores(x: torch.Tensor, y: torch.Tensor, jlo: torch.Tensor,
+                  jhi: torch.Tensor) -> torch.Tensor:
+    """Plain rows: uint8 x [B, lx] (pad 0) against uint8 y [B, ly] (pad 1)
+    within int32 jlo/jhi [lx, B] band bounds -> int32 [B] banded scores;
+    the banded kernel with one problem per read and identity haplotype
+    indices (K4's `_sw_banded_pairs` entry)."""
+    if x.device.type == "cpu":
+        return sw_banded_torch.banded_scores(x, y, jlo, jhi)
+    if y.shape[0] != x.shape[0]:
+        raise ValueError("x and y must have the same number of rows")
+    ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    return _launch_banded(x, y, ident, None, jlo, jhi, False)[0]
+
+
+def _plain_banded_batch_scores(x: torch.Tensor,
+                               y: torch.Tensor) -> torch.Tensor:
+    ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    jlo, jhi = band_torch.band_bounds(x, y, ident)
+    return sw_banded_torch.banded_scores(x, y, jlo, jhi)
+
+
+def banded_batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain rows, banded: uint8 x [B, lx] (pad 0) against uint8 y [B, ly]
+    (pad 1) -> int32 [B], each row pair's chained band (k = 6, w = 20)
+    built and scored on the device: band_index(y) once, then band_bounds
+    and banded_scores with identity indices. On the CPU the plain band
+    builder and banded DP."""
+    if x.device.type == "cpu":
+        return _plain_banded_batch_scores(x, y)
+    if y.shape[0] != x.shape[0]:
+        raise ValueError("x and y must have the same number of rows")
+    ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    return banded_scores(x, y, *band_bounds(x, y, ident))
 
 
 def band_ranges(ends: np.ndarray, lx: int,
@@ -444,25 +511,23 @@ def band_index(hap_mat: torch.Tensor) -> BandIndex:
 
 
 def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
-                 idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                 idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
                  index: BandIndex) -> Tuple[torch.Tensor, torch.Tensor]:
     """Validate, allocate and launch the band builder on the current
-    stream. Its match scratch is sized exactly: the count kernel's counts
+    stream; plain rows (per_read 1) when idx_alt is None. Its match
+    scratch is sized exactly: the count kernel's counts
     are summed on the device and the total is read (the host waits for the
     count pass there). A chunk within BAND_SCRATCH_BYTES (less the index)
     runs one chain pass; a larger one reads every problem's sum and runs
     the pass over the problem ranges of band_ranges, each in scratch of its
     own size."""
-    global BAND_LAUNCHES
+    global BAND_LAUNCHES, BAND_ROW_LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
-    _check(idx_ref, "idx_ref", torch.int32, 1, dev)
-    _check(idx_alt, "idx_alt", torch.int32, 1, dev)
+    per_read = _check_problems(reads, idx_ref, idx_alt)
     R, lx = reads.shape
     H, ly = hap_mat.shape
-    if idx_ref.shape[0] != R or idx_alt.shape[0] != R:
-        raise ValueError("idx_ref and idx_alt must have one entry per read")
     _check(index.keys, "index.keys", torch.int64, 2, dev)
     _check(index.pos, "index.pos", torch.int32, 2, dev)
     _check(index.hap_len, "index.hap_len", torch.int32, 1, dev)
@@ -470,7 +535,7 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
             or index.hap_len.shape != (H,)):
         raise ValueError(f"the index is not one of a [{H}, {ly}] haplotype "
                          "matrix")
-    P = 2 * R
+    P = per_read * R
     jlo = torch.empty((lx, P), dtype=torch.int32, device=dev)
     jhi = torch.empty((lx, P), dtype=torch.int32, device=dev)
     if P == 0 or lx == 0:
@@ -479,8 +544,9 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     counts = torch.empty(P, dtype=torch.int64, device=dev)
     problems = (reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
-                idx_alt.data_ptr(), index.keys.data_ptr(),
-                index.pos.data_ptr(), index.hap_len.data_ptr())
+                None if idx_alt is None else idx_alt.data_ptr(), per_read,
+                index.keys.data_ptr(), index.pos.data_ptr(),
+                index.hap_len.data_ptr())
     err = lib.band_build_count(*problems, counts.data_ptr(), stream)
     if err == 0:
         ends = torch.cumsum(counts, 0)
@@ -503,7 +569,10 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
                 jhi.data_ptr(), int(lx >= BAND_WIDE_KEYS_LX), stream)
             if err != 0:
                 break
-            BAND_LAUNCHES += 1
+            if per_read == 2:
+                BAND_LAUNCHES += 1
+            else:
+                BAND_ROW_LAUNCHES += 1
     if err != 0:
         raise RuntimeError("band_build kernel launch failed: "
                            + lib.band_build_error_string(err).decode())
@@ -511,12 +580,13 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
 
 
 def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
-                idx_ref: torch.Tensor, idx_alt: torch.Tensor,
+                idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor] = None,
                 index: Optional[BandIndex] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chained-band bounds (k = 6, w = 20) of each read against its ref and
     alt haplotype rows: (jlo, jhi) int32 [lx, 2R], problem 2r the read's
-    ref and 2r + 1 its alt; the same values as the host reference
+    ref and 2r + 1 its alt; without idx_alt, of read r against row
+    idx_ref[r] only: int32 [lx, R]. The same values as the host reference
     ops/sw_native.band_bounds. reads: uint8 [R, lx] (pad 0); hap_mat: uint8
     [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat (the
     caller checks the range); index: band_index(hap_mat), built here when
@@ -627,7 +697,9 @@ class SwBackend:
 class BandedSwBackend:
     """--sw-mode banded on `device`: the CUDA index build, band builder and
     banded kernel (kernel=True, needs a CUDA device) or the plain PyTorch
-    band builder and banded DP (kernel=False). Per call (one shape bucket)
+    band builder and banded DP (kernel=False). Called on plain rows (the
+    Python host path), it scores chunks of 2 * CHUNK_READS rows with
+    banded_batch_scores. On the pair route, per call (one shape bucket)
     the haplotypes' k-mer index is built once on the device; per chunk the
     band bounds are built there, on the current stream after the chunk's
     copy. The band builder's wrapper waits for its count pass (it reads the
@@ -640,6 +712,19 @@ class BandedSwBackend:
         if kernel and self.device.type != "cuda":
             raise ValueError("the CUDA kernel needs a CUDA device")
         self.kernel = kernel
+        self._batch = (banded_batch_scores if kernel
+                       else _plain_banded_batch_scores)
+
+    def __call__(self, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+        """uint8 [B, lx] / [B, ly] rows -> int32 [B] banded scores."""
+        outs = []
+        for s in range(0, x.shape[0], 2 * CHUNK_READS):
+            xt = _to(x[s : s + 2 * CHUNK_READS], np.uint8, self.device)
+            yt = _to(y[s : s + 2 * CHUNK_READS], np.uint8, self.device)
+            outs.append(self._batch(xt, yt))
+        if not outs:
+            return np.zeros(0, np.int32)
+        return torch.cat(outs).cpu().numpy()
 
     def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int8 [R] call codes. x is a uint8 [R, lx] array or a provider
