@@ -95,7 +95,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      mode on the banded one, the host band reference never; then python -m
      vartrix_tpu_torch.io.bai on the 50,000-read CRAM (the writer's
      multi-reference slices are indexed by decoding their records in
-     Python), whose .crai must equal the one written with it.
+     Python), whose .crai must equal the one written with it;
+  8. devices and processes, on phase 5's dataset: in-process, --backend
+     cuda, --device-agg in full consensus (twice), coverage + umi and
+     alt_frac and in banded consensus, and --mesh-devices -1 (a mesh of this one card)
+     in full consensus, each CSR-equal to phase 5's run of its mode
+     without the option, with its path's kernels launched (`aggregate`
+     printed beside phase 5's); MeshSwBackend and build_sharded_step over
+     two parts on this card, exactly against one SwBackend (int32 scores
+     and int8 codes, dense and 2-bit reads) and one count_block of the
+     whole batch, on 65,536 reads of phase 3's main family shape; then two
+     `python -m vartrix_tpu_torch --distributed 127.0.0.1:PORT,2,RANK`
+     processes on this card in coverage + umi, whose rank 0 writes
+     matrices CSR-equal to phase 5's and the same metrics counters, and
+     whose rank 1 writes nothing (each process's wall printed).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -108,6 +121,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2014,6 +2028,175 @@ def phase_cram_python(work, data, py, outs, run_launches):
     return py_launches
 
 
+def phase_devices(work, data, outs, device="cuda"):
+    """Phase 8: --device-agg, --mesh-devices and --distributed on phase 5's
+    dataset, each matrix CSR-equal (NaN-aware) to phase 5's run of its
+    mode without the option, every launch counter zeroed just before each
+    run and read just after (its path's kernels must have launched); then
+    in-process MeshSwBackend and build_sharded_step over two parts on this
+    card against one SwBackend and one count_block; then two --distributed
+    processes. Returns sw_pair's launches by full-mode run. (device "cpu"
+    runs the same on the CPU with the plain versions, as a rehearsal; no
+    kernel launches there.)"""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch import driver
+    from vartrix_tpu_torch.core import device_agg
+    from vartrix_tpu_torch.ops import sw_cuda
+    from vartrix_tpu_torch.parallel import mesh
+
+    kernel = device == "cuda"
+    dev_args = (("--backend", "cuda") if kernel else
+                ("--device", "cpu", "--backend", "torch"))
+    threads = str(os.cpu_count() or 1)
+    modes = {"consensus": ["-s", "consensus"],
+             "coverage_umi": ["-s", "coverage", "--umi"],
+             "alt_frac": ["-s", "alt_frac"]}
+
+    def argv(tag, mode, *extra):
+        return ["-v", data["vcf"], "-b", data["bam"], "-f", data["fasta"],
+                "-c", data["barcodes"], "-o", os.path.join(work, f"{tag}.mtx"),
+                "--ref-matrix", os.path.join(work, f"{tag}_ref.mtx"),
+                "--metrics-json", os.path.join(work, f"{tag}.json"),
+                *modes[mode], *extra]
+
+    def same(tag, sw_mode, mode):
+        a = outs[sw_mode, mode, "cuda"]
+        ok = csr_equal(os.path.join(work, f"{tag}.mtx"), a[0])
+        if mode == "coverage_umi":
+            ok = ok and csr_equal(os.path.join(work, f"{tag}_ref.mtx"), a[1])
+        log(f"devices {tag}: CSR-equal (NaN-aware) to phase 5's {sw_mode} "
+            f"{mode} run: {ok}")
+        if not ok:
+            fail(f"phase 8 {tag}: the matrix differs from its baseline")
+
+    def phases(tag):
+        with open(os.path.join(work, f"{tag}.json")) as f:
+            return json.load(f)
+
+    launches = {}
+    # full consensus twice, to tell the process's first --device-agg run
+    # (the first use of its sums' device ops) from a later one
+    runs = [(f"{sw}_{mode}_devagg{k}", sw, mode, ("--device-agg",))
+            for sw, mode, k in (("full", "consensus", ""),
+                                ("full", "consensus", "_again"),
+                                ("full", "coverage_umi", ""),
+                                ("full", "alt_frac", ""),
+                                ("banded", "consensus", ""))]
+    runs.append(("full_consensus_mesh1", "full", "consensus",
+                 ("--mesh-devices", "-1")))
+    for tag, sw_mode, mode, extra in runs:
+        for name in COUNTERS:
+            setattr(sw_cuda, name, 0)
+        t0 = time.perf_counter()
+        driver._main(argv(f"p8_{tag}", mode, "--sw-mode", sw_mode,
+                          "--threads", threads, *dev_args, *extra))
+        dt = time.perf_counter() - t0
+        n = {name: getattr(sw_cuda, name) for name in COUNTERS}
+        got = phases(f"p8_{tag}")["phase_seconds"]
+        base = phases(f"{sw_mode}_{mode}_cuda")["phase_seconds"]
+        log(f"devices {tag}: {dt:.3f}s, aggregate {got['aggregate']} s "
+            f"(phase 5 without the option: {base['aggregate']} s), score "
+            f"{got['score']} s (phase 5: {base['score']} s), counters {n}, "
+            f"phases {got}")
+        same(f"p8_{tag}", sw_mode, mode)
+        kernels = (("LAUNCHES",) if sw_mode == "full" else
+                   ("BANDED_LAUNCHES", "BAND_LAUNCHES", "INDEX_LAUNCHES"))
+        if kernel and (min(n[k] for k in kernels) == 0 or sum(n.values())
+                       != sum(n[k] for k in kernels)):
+            fail(f"phase 8 {tag}: kernels launched {n}")
+        if sw_mode == "full":
+            launches[tag] = n["LAUNCHES"]
+
+    # two parts on this card: the split, the gather and the sum
+    rng = np.random.default_rng(8)
+    x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                                  read_len=(140, 150), hap_len=(180, 224))
+    xp, lens = pack2(x)
+
+    def provider(start, n):
+        return x[start : start + n]
+
+    provider.shape = x.shape
+    provider.packed2 = lambda start, n: (xp[start : start + n],
+                                         lens[start : start + n])
+    two = [torch.device(device, 0) if kernel else torch.device("cpu")] * 2
+    single = sw_cuda.SwBackend(device, kernel)
+    split = sw_cuda.MeshSwBackend(two, kernel)
+    for name, fn in (("scores", "pair_chained"),
+                     ("codes", "pair_calls_chained")):
+        for form, reads in (("dense", x), ("2bit", provider)):
+            want = getattr(single, fn)(reads, haps, ir, ia)
+            got = getattr(split, fn)(reads, haps, ir, ia)
+            ok = got.dtype == want.dtype and np.array_equal(got, want)
+            log(f"devices MeshSwBackend(2 parts on {two[0]}) {name} {form}, "
+                f"{len(x)} reads: equal to SwBackend: {ok}")
+            if not ok:
+                fail(f"phase 8: MeshSwBackend {name} ({form}) differs")
+    n_rows, n_cells = 256, 512
+    rows = rng.integers(0, n_rows, len(x)).astype(np.int32)
+    cells = rng.integers(0, n_cells, len(x)).astype(np.int32)
+    valid = rng.random(len(x)) < 0.99
+    counts, n_reads = mesh.build_sharded_step(two, n_rows, n_cells)(
+        x, haps, ir, ia, rows, cells, valid)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, two[0])
+    want = device_agg.count_block(
+        sw_cuda.pair_calls(xt, ht, irt, iat),
+        torch.from_numpy(rows).to(two[0]), torch.from_numpy(cells).to(two[0]),
+        torch.from_numpy(valid).to(two[0]), n_rows, n_cells)
+    ok = (torch.equal(counts, want) and int(n_reads) == int(valid.sum()))
+    log(f"devices build_sharded_step(2 parts on {two[0]}): counts "
+        f"{counts.sum(dim=(0, 1)).tolist()}, n_reads {int(n_reads)}: equal "
+        f"to one count_block of the whole batch: {ok}")
+    if not ok:
+        fail("phase 8: build_sharded_step differs from one count_block")
+
+    # two processes on this card, rank r's outputs under its own names
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    half = str(max(1, (os.cpu_count() or 2) // 2))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vartrix_tpu_torch",
+         *argv(f"p8_dist{r}", "coverage_umi", "--threads", half,
+               *dev_args, "--log-level", "info",
+               "--distributed", f"127.0.0.1:{port},2,{r}")],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+
+    def wait(p):
+        try:
+            out, _ = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        return p.returncode, out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as ex:
+        ends = list(ex.map(wait, procs))
+    for r, (rc, out, wall) in enumerate(ends):
+        log(f"devices distributed rank {r}: exit {rc}, wall {wall:.3f}s")
+        if rc != 0:
+            log(out[-3000:])
+            fail(f"phase 8: --distributed rank {r} exited {rc}")
+    same("p8_dist0", "full", "coverage_umi")
+    got = phases("p8_dist0")
+    base = phases("full_coverage_umi_cuda")
+    log(f"devices distributed rank 0: metrics {got['metrics']}, launches "
+        f"{got['kernel_launches']}, phases {got['phase_seconds']}")
+    if got["metrics"] != base["metrics"]:
+        fail("phase 8: the gathered metrics differ from the single run's")
+    if kernel and got["kernel_launches"]["sw_pair"] == 0:
+        fail("phase 8: rank 0 did not launch sw_pair")
+    left = [f for f in os.listdir(work) if f.startswith("p8_dist1")]
+    log(f"devices distributed rank 1: files written {left}")
+    if left:
+        fail("phase 8: rank 1 wrote outputs")
+    launches["distributed_rank0"] = got["kernel_launches"]["sw_pair"]
+    return launches
+
+
 def phase_cli(work):
     """The user's entry point on a small dataset, in both --sw-mode values,
     against the plain version on the CPU."""
@@ -2361,6 +2544,8 @@ def main():
                 f"in {py_s:.1f}s (a third worker process, from phase 3)")
         launches.update(phase_cram_python(work, data, py, outs, run_launches))
         done("cram and python host")
+        device_launches = phase_devices(work, data, outs)
+        done("device-agg, mesh and distributed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     sw_note = "no PyTorch call computes Smith-Waterman"
@@ -2411,6 +2596,7 @@ def main():
         if name == "sw_pair":  # its plain-row route on the Python host
             record["kernels"][-1]["python_host_launches"] = {
                 k: v for k, v in launches.items() if k.startswith("sw_pair_")}
+            record["kernels"][-1]["phase8_launches"] = device_launches
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(record))
     print(card)

@@ -7,6 +7,7 @@ whole runs byte for byte (BAM and CRAM, --sw-mode full and banded, three
 scoring modes). Inputs are seeded synthetic data of a few hundred reads;
 the tolerance is exact equality."""
 
+import json
 import logging
 
 import numpy as np
@@ -160,10 +161,10 @@ def test_calls_equal_to_jax(scores, use_umi):
         assert repr(got) == repr(want)
 
 
-def _run(main, ds, reads, out, extra):
+def _run(main, ds, reads, out, extra, host="python"):
     argv = ["-v", ds["vcf"], "-b", reads, "-f", ds["fasta"],
             "-c", ds["barcodes"], "-o", str(out),
-            "--ref-matrix", str(out) + ".ref", "--host", "python", *extra]
+            "--ref-matrix", str(out) + ".ref", "--host", host, *extra]
     main(argv)
     with open(out, "rb") as f:
         got = f.read()
@@ -203,17 +204,25 @@ def _alignment_lines(caplog):
             if "_aln:" in r.getMessage() or "ref_score:" in r.getMessage()]
 
 
-def test_debug_alignment_log_equal_to_jax(tmp_path, caplog):
-    # a few reads: each alignment is traced back in Python
+@pytest.mark.parametrize("host", ["python", "auto"])
+def test_debug_alignment_log_equal_to_jax(tmp_path, caplog, host):
+    # a few reads: each alignment is traced back in Python. --host auto
+    # takes the Python host at --log-level debug in both packages
     ds = generate_dataset(str(tmp_path / "d"), SynthConfig(
         n_variants=3, n_cells=8, reads_per_variant=5, seed=35))
+    debug = ["--log-level", "debug", "--metrics-json"]
     with caplog.at_level(logging.DEBUG, logger="vartrix"):
-        _run(port_driver._main, ds, ds["bam"], tmp_path / "p.mtx",
-             ["--device", "cpu", "--backend", "torch", "--log-level",
-              "debug"])
+        got_mtx = _run(port_driver._main, ds, ds["bam"], tmp_path / "p.mtx",
+                       ["--device", "cpu", "--backend", "torch", *debug,
+                        str(tmp_path / "p.json")], host)
         got = _alignment_lines(caplog)
         caplog.clear()
-        _run(jax_main, ds, ds["bam"], tmp_path / "j.mtx",
-             ["--backend", "cpu", "--log-level", "debug"])
+        want_mtx = _run(jax_main, ds, ds["bam"], tmp_path / "j.mtx",
+                        ["--backend", "cpu", *debug,
+                         str(tmp_path / "j.json")], host)
         want = _alignment_lines(caplog)
     assert got == want and len(got) > 20
+    assert got_mtx == want_mtx
+    hosts = [json.loads((tmp_path / f"{k}.json").read_text())["config"]["host"]
+             for k in "pj"]
+    assert hosts == ["python", "python"]

@@ -5,6 +5,7 @@ falls back to the CPU on its own."""
 
 import ast
 import os
+import socket
 import subprocess
 import sys
 
@@ -51,7 +52,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_driver_import_leaves_jax_unloaded():
     code = ("import sys, vartrix_tpu_torch.driver, vartrix_tpu_torch.ops."
-            "sw_cuda; assert 'jax' not in sys.modules, 'jax loaded'; "
+            "sw_cuda, vartrix_tpu_torch.parallel.mesh, vartrix_tpu_torch."
+            "parallel.multihost, vartrix_tpu_torch.core.device_agg; "
+            "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'vartrix_tpu' not in sys.modules, 'reference loaded'")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -92,26 +95,21 @@ def test_cuda_backend_on_cpu_refused(tmp_path, data):
     assert not (tmp_path / "o.mtx").exists()
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @pytest.mark.parametrize("extra", [
-    ["--device-agg"], ["--mesh-devices", "2"],
-    ["--distributed", "localhost:1234,2,0"],
+    ["--host", "python"], ["CRAM input"], ["--device-agg"],
+    ["--mesh-devices", "2"], ["--distributed", "127.0.0.1:{port},1,0"],
 ], ids=lambda a: a[0])
-def test_unported_options_exit(tmp_path, data, extra, caplog):
-    argv = _argv(data, tmp_path, "--device", "cpu", "--backend", "torch")
-    argv += extra
-    with pytest.raises(SystemExit) as e:
-        driver._main(argv)
-    assert e.value.code != 0
-    assert "not yet ported" in caplog.text
-    assert extra[0] in caplog.text
-    assert not (tmp_path / "o.mtx").exists()
-
-
-@pytest.mark.parametrize("extra", [["--host", "python"], ["CRAM input"]],
-                         ids=lambda a: a[0])
 def test_formerly_unported_options_run(tmp_path, data, extra, caplog):
     argv = _argv(data, tmp_path, "--device", "cpu", "--backend", "torch")
-    if extra == ["CRAM input"]:
+    if extra[0] == "--distributed":  # a group of one process
+        argv += [extra[0], extra[1].format(port=_free_port())]
+    elif extra == ["CRAM input"]:
         b = BamReader(data["bam"])
         cram = str(tmp_path / "reads.cram")
         write_cram(cram, list(zip(b.ref_names, b.ref_lens)), b.records(),
@@ -123,6 +121,16 @@ def test_formerly_unported_options_run(tmp_path, data, extra, caplog):
     driver._main(argv)
     assert "not yet ported" not in caplog.text
     assert (tmp_path / "o.mtx").read_text().startswith("%%MatrixMarket")
+    assert (tmp_path / "o.mtx").read_bytes() == _reference_run(data,
+                                                               tmp_path)
+
+
+def _reference_run(data, tmp_path):
+    """The same run without the option: its matrix bytes."""
+    (tmp_path / "plain").mkdir()
+    driver._main(_argv(data, tmp_path / "plain", "--device", "cpu",
+                       "--backend", "torch"))
+    return (tmp_path / "plain" / "o.mtx").read_bytes()
 
 
 def test_device_cpu_torch_runs(tmp_path, data):

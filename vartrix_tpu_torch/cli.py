@@ -3,9 +3,9 @@
 Mirrors the reference CLI exactly: same 18 flags, same short names, same
 defaults, same choices (reference src/main.rs:40-135), plus the framework
 flags of vartrix_tpu's CLI. --device and --backend choose where and how
-the Smith-Waterman scores are computed. Flags whose path this package has
-not ported yet (--device-agg, --mesh-devices, --distributed) are accepted
-and refused by the driver with a message.
+the Smith-Waterman scores are computed; --device-agg, --mesh-devices and
+--distributed move the aggregation, the scoring and the row shards onto
+devices and processes.
 """
 
 from __future__ import annotations
@@ -131,12 +131,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "flags")
     p.add_argument("--mesh-devices", dest="mesh_devices", type=int, default=0,
                    metavar="N",
-                   help="Shard scoring batches across N local accelerator "
-                        "devices (0 = single device; not yet ported)")
+                   help="Split full-mode scoring over N local CUDA devices "
+                        "(-1 = every one; 0 = single device), each running "
+                        "--backend's scorer (the kernel or the plain "
+                        "version); with --device cpu, N parts on the CPU. "
+                        "--sw-mode banded runs unsharded on --device")
     p.add_argument("--device-agg", dest="device_agg", action="store_true",
                    help="Run the call + (variant,cell) scatter-add aggregation "
-                        "(incl. UMI-group consensus) on the accelerator instead "
-                        "of the host (not yet ported)")
+                        "(incl. UMI-group consensus) on --device instead of "
+                        "the host (the native host only)")
     p.add_argument("--num-shards", dest="num_shards", type=int, default=1,
                    metavar="N",
                    help="Distribute over N hosts/processes: this process "
@@ -147,6 +150,10 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="I", help="This process's shard index in [0, N)")
     p.add_argument("--distributed", dest="distributed", metavar="ADDR:PORT,N,RANK",
                    default=None,
-                   help="Run as one process of a distributed job (not yet "
-                        "ported)")
+                   help="Run as process RANK of N in a torch.distributed "
+                        "job (gloo) whose rank 0 listens at ADDR:PORT, or "
+                        "'auto' for torchrun's environment: each process "
+                        "scores its variant-row shard on cuda:RANK mod the "
+                        "local device count (or the CPU), and rank 0 "
+                        "gathers and writes the outputs")
     return p

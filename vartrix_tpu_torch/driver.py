@@ -17,8 +17,15 @@ torch.profiler trace of the scoring phase. The Python one decodes record
 by record (io/bam.BamReader, io/bai.RegionStream under a region plan,
 io/cram.CramReader under a .crai container plan), scores plain (read,
 haplotype) rows and forms the calls per variant (core/calls.py), logging
-every read's alignment at --log-level debug; --stream, --checkpoint-dir
-and --profile-dir do not apply to it.
+every read's alignment at --log-level debug (which --host auto takes for
+that log); --stream, --checkpoint-dir, --profile-dir and --device-agg do
+not apply to it.
+
+--device-agg forms the native host's calls and (variant, cell) counts on
+--device (core/agg_device_driver.py); --mesh-devices N splits full-mode
+scoring over local devices (ops/sw_cuda.MeshSwBackend); --distributed
+runs one row shard per process on torch.distributed and gathers the
+matrices to rank 0 (parallel/multihost.py).
 
 Scoring runs on --device (default cuda) with --backend cuda (the
 hand-written kernel, default) or torch (the plain PyTorch version), in
@@ -44,6 +51,7 @@ import torch
 from .cli import build_parser
 from .core import agg_numpy
 from .core import calls as calls_mod
+from .core.agg_device_driver import aggregate_on_device
 from .core.fast_pipeline import collect_reads_fast, score_all_fast
 from .core.pipeline import (PipelineArgs, collect_reads, prepare_variants,
                             score_all)
@@ -56,7 +64,9 @@ from .io.fasta import FastaIndex, IndexedFasta
 from .io.matrix_market import TriMat, write_matrix_market
 from .io.vcf import iter_vcf_records, read_vcf_records
 from .ops import sw_cuda
-from .parallel.multihost import shard_range
+from .parallel.mesh import make_mesh
+from .parallel.multihost import (gather_metrics, gather_triplets,
+                                 process_group, shard_range)
 from .utils.metrics import Metrics, log_metrics
 from .utils.trace import span_name
 
@@ -202,16 +212,6 @@ def _maybe_profile(profile_dir: Optional[str], device: str, phase: str):
     path = os.path.join(profile_dir, f"{phase}.pt.trace.json")
     prof.export_chrome_trace(path)
     log.info("Profiler trace of %s: %s", phase, path)
-
-
-def _not_ported(args) -> List[str]:
-    """The requested options whose path this package does not have yet."""
-    asked = {
-        "--device-agg": args.device_agg,
-        "--mesh-devices": args.mesh_devices != 0,
-        "--distributed": args.distributed is not None,
-    }
-    return [k for k, v in asked.items() if v]
 
 
 def _loci(works) -> list:
@@ -380,10 +380,8 @@ def _score_checkpointed(args, cbam, works, read_idx, backend):
     return [cached[wi] for wi in range(len(works))]
 
 
-def select_backend(device: str, backend: str, sw_mode: str):
-    """The scoring backend for --device/--backend/--sw-mode; exits on a
-    combination that cannot run here. Neither mode scores on host threads:
-    --threads serves the decode only."""
+def check_device(device: str, backend: str) -> None:
+    """Exits on a --device/--backend combination that cannot run here."""
     if device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available. The plain "
                   "version runs on the CPU only when asked: --device cpu "
@@ -393,9 +391,27 @@ def select_backend(device: str, backend: str, sw_mode: str):
         log.error("--backend cuda is the CUDA kernel and needs --device "
                   "cuda; use --backend torch for --device %s", device)
         sys.exit(1)
+
+
+def select_backend(device: str, backend: str, sw_mode: str,
+                   mesh_devices: int = 0):
+    """The scoring backend for --device/--backend/--sw-mode/--mesh-devices
+    (check_device first). Neither mode scores on host threads: --threads
+    serves the decode only. --mesh-devices splits full-mode scoring over
+    parallel/mesh.make_mesh's devices, each with --backend's scorer; in
+    banded mode it is logged and the banded scorer runs unsharded on
+    --device."""
+    kernel = backend == "cuda"
     if sw_mode == "banded":
-        return sw_cuda.BandedSwBackend(device, kernel=backend == "cuda")
-    return sw_cuda.SwBackend(device, kernel=backend == "cuda")
+        if mesh_devices:
+            log.error("--mesh-devices is a full-SW device path; --sw-mode "
+                      "banded runs unsharded on --device %s", device)
+        return sw_cuda.BandedSwBackend(device, kernel=kernel)
+    if mesh_devices:
+        devices = make_mesh(mesh_devices, device)
+        log.info("Mesh scoring across %d local devices", len(devices))
+        return sw_cuda.MeshSwBackend(devices, kernel=kernel)
+    return sw_cuda.SwBackend(device, kernel=kernel)
 
 
 def _native_host(args, pargs, bam, works, cell_barcodes, backend, early,
@@ -459,8 +475,13 @@ def _native_host(args, pargs, bam, works, cell_barcodes, backend, early,
         if w._metrics is not None:  # lazy: untouched rows carry none
             metrics.add(w._metrics)
     with _phase("aggregate"):
-        g_rows, g_cols, ref_c, alt_c, unk_c = agg_numpy.aggregate_flat(
-            cells_l, umis_l, per_variant_codes, pargs.use_umi)
+        if args.device_agg:
+            g_rows, g_cols, ref_c, alt_c, unk_c = aggregate_on_device(
+                cells_l, umis_l, per_variant_codes, pargs.use_umi,
+                args.device)
+        else:
+            g_rows, g_cols, ref_c, alt_c, unk_c = agg_numpy.aggregate_flat(
+                cells_l, umis_l, per_variant_codes, pargs.use_umi)
     tot = (ref_c + alt_c + unk_c).astype(np.float64)
     if args.scoring_method == "consensus":
         vals = np.where((ref_c > 0) & (alt_c > 0), 3.0,
@@ -575,11 +596,22 @@ def _main(argv: List[str]) -> None:
 
     check_inputs_exist(args.fasta, args.vcf, args.bam, args.cell_barcodes,
                        args.out_matrix, args.ref_matrix)
-    missing = _not_ported(args)
-    if missing:
-        log.error("not yet ported: %s", ", ".join(missing))
-        sys.exit(1)
-    backend = select_backend(args.device, args.backend, args.sw_mode)
+    check_device(args.device, args.backend)
+    with process_group(args.distributed) as (dist_rank, dist_count):
+        if args.distributed:
+            args.num_shards, args.shard_index = dist_count, dist_rank
+            log.info("Distributed: process %d/%d", dist_rank, dist_count)
+            if args.device == "cuda":
+                torch.cuda.set_device(dist_rank % torch.cuda.device_count())
+        _run(args, dist_rank, dist_count)
+
+
+def _run(args, dist_rank: int, dist_count: int) -> None:
+    """The run after argument checks: this process's rows (all of them, or
+    its shard), gathered to rank 0 when the run is distributed, which
+    alone writes the outputs."""
+    backend = select_backend(args.device, args.backend, args.sw_mode,
+                             args.mesh_devices)
 
     cell_barcodes = load_barcodes(args.cell_barcodes)
     records = read_vcf_records(args.vcf)
@@ -619,7 +651,10 @@ def _main(argv: List[str]) -> None:
     # below AUTO_REGION_BYTES; no --stream) the decode runs on a worker
     # thread meanwhile. A region plan needs the haplotypes' windows first,
     # and a CRAM's decode its container plan.
-    python_host = args.host == "python"
+    # debug logging reports each read's alignment, which only the Python
+    # host carries: --host auto takes it there, as the JAX package does
+    python_host = args.host == "python" or (args.host == "auto"
+                                            and args.log_level == "debug")
     native_bam = not (python_host or isinstance(bam, CramReader))
     early = None
     if native_bam and args.stream == 0 and (
@@ -644,9 +679,10 @@ def _main(argv: List[str]) -> None:
     if python_host:
         for flag, on in (("--stream", args.stream > 0),
                          ("--checkpoint-dir", args.checkpoint_dir),
-                         ("--profile-dir", args.profile_dir)):
+                         ("--profile-dir", args.profile_dir),
+                         ("--device-agg", args.device_agg)):
             if on:
-                log.info("%s applies to the native host; --host python "
+                log.info("%s applies to the native host; the Python host "
                          "runs without it", flag)
         metrics = _python_host(args, pargs, bam, works, cell_barcodes,
                                backend, matrix, ref_matrix)
@@ -657,6 +693,15 @@ def _main(argv: List[str]) -> None:
     launches = dict(zip(("sw_pair", "sw_banded", "band_build", "band_index"),
                         (b - a for a, b in zip(before, counts()))))
     log.debug("Finished scoring alignments for all variants")
+
+    if dist_count > 1:
+        matrix = gather_triplets(matrix, dist_rank, dist_count)
+        if args.scoring_method == "coverage":
+            ref_matrix = gather_triplets(ref_matrix, dist_rank, dist_count)
+        metrics = gather_metrics(metrics, dist_count)
+        if dist_rank != 0:
+            log_metrics(log, metrics)
+            return
 
     log_metrics(log, metrics)
 

@@ -25,7 +25,9 @@ scores plain (x, y) rows (core/pipeline.score_all, the Python host path),
 native host path's default route) returns one int8 call code per read. It
 chunks each shape bucket into launches of CHUNK_READS reads, shipping reads
 as 2-bit codes while every read of the bucket is A/C/G/T and as dense bytes
-from the first chunk that is not. `BandedSwBackend` (--sw-mode banded)
+from the first chunk that is not. `MeshSwBackend` (--mesh-devices) has the
+same contract and splits each chunk's reads over several devices, one
+SwBackend each. `BandedSwBackend` (--sw-mode banded)
 scores plain rows when called (banded_batch_scores) and has the default
 pair route: per shape bucket it builds the haplotypes' k-mer index once on
 the device (band_index), then per chunk it ships dense reads and indices,
@@ -36,6 +38,7 @@ them there; no band stage runs on the host.
 from __future__ import annotations
 
 import ctypes
+from contextlib import nullcontext
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -619,6 +622,13 @@ def from_numpy(x: np.ndarray, hap_mat: np.ndarray, idx_ref: np.ndarray,
             _to(idx_ref, np.int32, device), _to(idx_alt, np.int32, device))
 
 
+def _gather(outs: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The launches' outputs, in order, as one host tensor: those of other
+    devices join the first one's, then one copy to the host."""
+    first = outs[0].device
+    return torch.cat([o.to(first) for o in outs], dim=dim).cpu()
+
+
 class SwBackend:
     """Scoring backend on `device`: the CUDA kernel (kernel=True, needs a
     CUDA device) or the plain PyTorch version (kernel=False)."""
@@ -636,61 +646,122 @@ class SwBackend:
         """uint8 [B, lx] / [B, ly] rows -> int32 [B]."""
         outs = []
         for s in range(0, x.shape[0], 2 * CHUNK_READS):
-            xt = torch.from_numpy(np.ascontiguousarray(
-                x[s : s + 2 * CHUNK_READS], np.uint8)).to(self.device)
-            yt = torch.from_numpy(np.ascontiguousarray(
-                y[s : s + 2 * CHUNK_READS], np.uint8)).to(self.device)
-            outs.append(self._batch(xt, yt))
+            outs += self._rows(x[s : s + 2 * CHUNK_READS],
+                               y[s : s + 2 * CHUNK_READS])
         if not outs:
             return np.zeros(0, np.int32)
-        return torch.cat(outs).cpu().numpy()
+        return _gather(outs).numpy()
 
     def pair_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int32 [R, 2] (ref, alt) scores; x is uint8 [R, lx] or a read
-        provider (see _chunks)."""
-        outs = self._chunks(x, hap_mat, idx_ref, idx_alt, self._pair_scores)
+        provider (see host_chunks)."""
+        outs = self._chunks(x, hap_mat, idx_ref, idx_alt, "_pair_scores")
         if not outs:
             return np.zeros((0, 2), np.int32)
-        return torch.cat(outs, dim=1).T.cpu().numpy()
+        return _gather(outs, dim=1).T.numpy()
 
     def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int8 [R] call codes (the pipeline's default route)."""
-        outs = self._chunks(x, hap_mat, idx_ref, idx_alt, self._pair_calls)
+        outs = self._chunks(x, hap_mat, idx_ref, idx_alt, "_pair_calls")
         if not outs:
             return np.zeros(0, np.int8)
-        return torch.cat(outs).cpu().numpy()
+        return _gather(outs).numpy()
 
-    def _chunks(self, x, hap_mat, idx_ref, idx_alt, fn):
-        """Launch `fn` over chunks of CHUNK_READS reads. x is a uint8
-        [R, lx] array or a provider: `x(start, n)` -> uint8 [n, lx] rows,
-        `.shape` == (R, lx), and optionally `.packed2(start, n)` -> (uint8
-        [n, lx//4] 2-bit codes, int32 [n] lengths) or None when a chunk
-        holds a base other than A/C/G/T. Outputs stay on the device until
-        the caller gathers them, so chunk k+1's host gather overlaps chunk
-        k's kernel."""
-        R, lx = x.shape
-        packed2 = (callable(x) and getattr(x, "packed2", None) is not None
-                   and lx % 4 == 0)
+    def _rows(self, x: np.ndarray, y: np.ndarray) -> List[torch.Tensor]:
+        """One chunk of plain rows scored on the device."""
+        return [self._batch(_to(x, np.uint8, self.device),
+                            _to(y, np.uint8, self.device))]
+
+    def _chunks(self, x, hap_mat, idx_ref, idx_alt, fn: str):
+        """Launch the wrapper `fn` names over chunks of CHUNK_READS reads
+        (host_chunks). Outputs stay on the device until the caller gathers
+        them, so chunk k+1's host gather overlaps chunk k's kernel."""
         _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
-        dev = self.device
-        hap = _to(hap_mat, np.uint8, dev)
+        hap = _to(hap_mat, np.uint8, self.device)
+        return [_launch_part(getattr(self, fn), self.device, hap, *chunk)
+                for chunk in host_chunks(x, idx_ref, idx_alt)]
+
+
+def host_chunks(x, idx_ref: np.ndarray, idx_alt: np.ndarray):
+    """Yields each chunk of CHUNK_READS reads as host arrays (reads, their
+    2-bit lengths or None, idx_ref, idx_alt). x is a uint8 [R, lx] array
+    or a provider: `x(start, n)` -> uint8 [n, lx] rows, `.shape` == (R,
+    lx), and optionally `.packed2(start, n)` -> (uint8 [n, lx//4] 2-bit
+    codes, int32 [n] lengths) or None when a chunk holds a base other than
+    A/C/G/T; reads ship dense from that chunk on."""
+    R, lx = x.shape
+    packed2 = (callable(x) and getattr(x, "packed2", None) is not None
+               and lx % 4 == 0)
+    for start in range(0, R, CHUNK_READS):
+        n = min(CHUNK_READS, R - start)
+        lens = None
+        if packed2:
+            got = x.packed2(start, n)
+            if got is None:
+                packed2 = False  # dense from here on
+            else:
+                xc, lens = got
+        if lens is None:
+            xc = x(start, n) if callable(x) else x[start : start + n]
+        yield (xc, lens, idx_ref[start : start + n],
+               idx_alt[start : start + n])
+
+
+def _launch_part(fn, dev: torch.device, hap: torch.Tensor, xc, lens, ir, ia):
+    """`fn` (a pair wrapper) on host reads xc, their 2-bit lengths lens (or
+    None) and indices ir, ia, copied to `dev`; hap lies there already."""
+    return fn(_to(xc, np.uint8, dev), hap, _to(ir, np.int32, dev),
+              _to(ia, np.int32, dev),
+              None if lens is None else _to(lens, np.int32, dev))
+
+
+def device_context(dev: torch.device):
+    """The context that makes `dev` the current CUDA device (the kernels
+    launch on the current device's stream); none on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+def split_rows(n: int, n_parts: int) -> List[Tuple[int, int]]:
+    """n rows as n_parts contiguous ranges [a, b) in order, their lengths
+    at most one row apart; empty ranges dropped."""
+    bounds = [n * p // n_parts for p in range(n_parts + 1)]
+    return [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+
+
+class MeshSwBackend(SwBackend):
+    """SwBackend split over local devices (--mesh-devices; the counterpart
+    of the JAX package's make_mesh_scorer): one SwBackend per device, each
+    chunk of reads cut into contiguous parts, one per device, each part
+    launched on its device against the device's copy of the haplotype
+    matrix, and the outputs gathered back in read order. A part keeps each
+    read's (ref, alt) indices and 2-bit length with the read. The kernel
+    (kernel=True, every device CUDA) or the plain version runs on every
+    part. Scores are per read, so they do not depend on the split."""
+
+    def __init__(self, devices, kernel: bool = True):
+        super().__init__(devices[0], kernel)
+        self.parts = [SwBackend(d, kernel) for d in devices]
+
+    def _rows(self, x: np.ndarray, y: np.ndarray) -> List[torch.Tensor]:
         outs = []
-        for start in range(0, R, CHUNK_READS):
-            n = min(CHUNK_READS, R - start)
-            lens = None
-            if packed2:
-                got = x.packed2(start, n)
-                if got is None:
-                    packed2 = False  # dense from here on
-                else:
-                    xc, lens = got
-            if lens is None:
-                xc = x(start, n) if callable(x) else x[start : start + n]
-            outs.append(fn(
-                _to(xc, np.uint8, dev), hap,
-                _to(idx_ref[start : start + n], np.int32, dev),
-                _to(idx_alt[start : start + n], np.int32, dev),
-                None if lens is None else _to(lens, np.int32, dev)))
+        for be, (a, b) in zip(self.parts,
+                              split_rows(len(x), len(self.parts))):
+            with device_context(be.device):
+                outs += be._rows(x[a:b], y[a:b])
+        return outs
+
+    def _chunks(self, x, hap_mat, idx_ref, idx_alt, fn: str):
+        _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
+        haps = [_to(hap_mat, np.uint8, be.device) for be in self.parts]
+        outs = []
+        for xc, lens, ir, ia in host_chunks(x, idx_ref, idx_alt):
+            for be, hap, (a, b) in zip(self.parts, haps,
+                                       split_rows(len(ir), len(self.parts))):
+                with device_context(be.device):
+                    outs.append(_launch_part(
+                        getattr(be, fn), be.device, hap, xc[a:b],
+                        None if lens is None else lens[a:b], ir[a:b],
+                        ia[a:b]))
         return outs
 
 
