@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (nvcc), libgenomio, libcramio (its link line printed) and the host
      band reference band_bounds.cpp (g++) from the checkout's sources, two
      probes (nvcc, SASS only: the least DP cell update, and band_build's
-     candidate scoring) and a DPX rate probe (nvcc), all in parallel, with
+     candidate scoring), a DPX rate probe and three probes of band_build's
+     split (nvcc: copies of band_build.cu that return where its chain DP
+     ends, the lookups probe also before each chunk's DP steps; and the
+     chain DP under other problem-to-lane mappings), all in parallel, with
      the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, exact
      equality. sw_pair (int32 scores and int8 codes) on each of its three
@@ -30,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      families of the banded path (main, bending bands, full bands, empty
      bands, empty haplotypes, raw bytes, ly=4032, a haplotype wider than
      32,767 bases, low-complexity pairs with thousands of matches), with
-     32- and 64-bit chain keys, and against the host reference on one
+     32- and 64-bit chain keys and on both width routes of its chain pass
+     (band rows in shared memory, the main width's route, or in a work
+     buffer, forced by its width threshold; the 65,602-base reads take the
+     work buffer by width), and against the host reference on one
      homopolymer locus at ly=4032 whose matches need several chain-pass
      ranges and on the 65,602-base reads. sw_banded: scores and codes on
      those bounds against its plain version. On every family of the
@@ -51,7 +57,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      sw_banded the instructions per cell of its
      core and of its masked zones, the cells it visits and the lane slots
      its divergence leaves idle; for band_build (given its index) the host
-     reference's time per pair (the route it replaced); band_index on the
+     reference's time per pair (the route it replaced) and its time split
+     (CUDA events between the count pass, the device sum, the host read of
+     the total and the chain pass; the chain DP and lookups probes' chain
+     passes, timed in turns with it, cut the chain pass into its lookups,
+     its DP steps (beside their time at full issue) and the traceback with
+     the band fill) and its chain DP at 32, 16 and 8 lanes per problem
+     (the mapping probe, held to the kernel's own DP); band_index on the
      bucket's haplotype matrix, and torch.sort of the same keys; both
      banded kernels' plain-row mode on the same 131,072 problems as plain
      rows, in turns with their pair mode, with its bound;
@@ -112,9 +124,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py --band [--baseline DIR]` runs the band builder
+alone: phases 1 and 2, the SASS counts, phase 3's banded families and
+phase 4's banded timing; with
+--baseline, the band_build.cu of the checkout at DIR (e.g. the parent
+commit's, unpacked by `git archive` under build/) built beside this one
+and timed against it in turns at the main shape, bounds held equal.
 """
 
 import collections
+import ctypes
 import json
 import math
 import multiprocessing
@@ -136,11 +156,12 @@ HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_SM_CLK = 4 * 32
 # the instantiations the paths launch: full, 2-bit reads and int8 call
 # codes on the packed route (and, timed beside it, on the 32-bit scalar
-# route); banded, int8 call codes (32-bit scratch words; 32-bit chain keys)
+# route); banded, int8 call codes (32-bit scratch words; 32-bit chain keys,
+# band rows in shared memory)
 MAIN_KERNEL_SYMBOL = "sw_pair16x2_kernelILb1ELb1E"
 SCALAR_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
 BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1ELb0EE"
-CHAIN_KERNEL_SYMBOL = "chain_kernelIiE"
+CHAIN_KERNEL_SYMBOL = "chain_kernelIiLb1EE"
 # the SASS instruction that marks one DP cell in each kernel's hot loop:
 # on the packed route one per two problems' cell, the add-max with zero
 # (T); on the scalar routes and in sw_banded the three-way H maximum with
@@ -289,6 +310,246 @@ extern "C" int dpx_rate_launch(const void* in, int iters, int blocks,
   return static_cast<int>(cudaGetLastError());
 }
 '''
+# The chain DP of band_build.cu under other problem-to-lane mappings, for
+# the split of phase 4 (a probe: the product kernel keeps a warp per
+# problem). group_dp_probe<G>: G lanes per problem, 32 / G problems per
+# warp, matches in chunks of G, 64 / G links per lane (this chunk's or the
+# one 64 / G back, then 1, 2, ... chunks back), one full-warp reduction per
+# problem and match step; the lookups, the gathering of matches into a
+# chunk and the scoring (link_key) are band_build.cu's. It stores every
+# match and its predecessor distance and writes each problem's best match
+# and a checksum of the distances. warp_dp_check writes the same two from
+# the kernel's own chain_dp (a warp per problem), the reference each
+# mapping is held to.
+MAPPING_PROBE_SRC = r'''
+#include "band_build.cu"
+
+constexpr int kProbeThreads = 256;
+constexpr int kProbeWarps = kProbeThreads / 32;
+
+template <int G>
+__global__ void __launch_bounds__(kProbeThreads)
+group_dp_probe(const uint8_t* __restrict__ reads, size_t n_prob, int lx,
+               int ly, const int32_t* __restrict__ idx_ref,
+               const int32_t* __restrict__ idx_alt, int per_read,
+               const unsigned long long* __restrict__ keys,
+               const int32_t* __restrict__ pos,
+               const int32_t* __restrict__ hap_len,
+               const long long* __restrict__ ends, int32_t* match_i,
+               int32_t* match_j, int32_t* match_prev,
+               long long* __restrict__ best_out,
+               unsigned* __restrict__ sum_out) {
+  constexpr int kGroups = 32 / G, kLinks = kMaxPred / G;
+  __shared__ int2 chunk[kProbeWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane / G, gl = lane % G, gbase = g * G;
+  const size_t p0 = (static_cast<size_t>(blockIdx.x) * kProbeWarps + warp) *
+                    kGroups;
+  const size_t p = p0 + g;
+  Problem q{};
+  for (int k = 0; k < kGroups; ++k) {  // each group's problem, by the warp
+    if (p0 + k < n_prob) {
+      const Problem t = load_problem(reads, lx, ly, idx_ref, idx_alt,
+                                     per_read, keys, pos, hap_len, p0 + k);
+      if (k == g) q = t;
+    }
+  }
+  const long long start = p < n_prob && p ? ends[p - 1] : 0;
+  const bool live = p < n_prob && q.len_x >= kK && q.len_y >= kK &&
+                    ends[p] != start;
+  int32_t* mi = match_i + start;
+  int32_t* mj = match_j + start;
+  int32_t* mp = match_prev + start;
+  const int n_i = live ? q.len_x - kK + 1 : 0, n_j = q.len_y - kK + 1;
+  Link links[kLinks];
+#pragma unroll
+  for (int k = 0; k < kLinks; ++k) links[k] = Link{INT32_MAX, 0, 0};
+  int ci = 0, cj = 0, ck = 0, filled = 0;
+  int blk = 0, i0 = 0, run_lo = 0, excl = 0, total = 0, m0 = 0;
+  long long base = 0, best_a = -1;
+  int best_sc = -1;
+  unsigned sum = 0;
+  while (true) {
+    // fill each group's chunk: G matches, or what its reads have left
+    while (true) {
+      const bool need = filled < G && m0 >= total && i0 < n_i;
+      if (!__any_sync(kFull, need || (filled < G && m0 < total))) break;
+      int lo = 0, hi = 0;
+      if (need) lookup(q, i0 + gl, n_i, n_j, lo, hi);
+      int incl = hi - lo;
+#pragma unroll
+      for (int d = 1; d < G; d <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, d, G);
+        if (gl >= d) incl += v;
+      }
+      const int tot = __shfl_sync(kFull, incl, G - 1, G);
+      if (need) {
+        run_lo = lo;
+        excl = incl - (hi - lo);
+        total = tot;
+        m0 = 0;
+        blk = i0;
+        i0 += G;
+      }
+      const int take = filled < G ? min(total - m0, G - filled) : 0;
+      const int m = m0 + gl - filled;
+      int src = 0;
+#pragma unroll
+      for (int b = G / 2; b > 0; b >>= 1) {
+        if (__shfl_sync(kFull, excl, src + b, G) <= m) src += b;
+      }
+      const int e = __shfl_sync(kFull, run_lo, src, G) +
+                    (m - __shfl_sync(kFull, excl, src, G));
+      if (take > 0 && gl >= filled && gl < filled + take) {
+        ci = blk + src;
+        cj = __ldg(q.pos + e);
+      }
+      if (take > 0) {
+        filled += take;
+        m0 += take;
+      }
+    }
+    const int n = filled;
+    if (!__any_sync(kFull, n > 0)) break;
+    chunk[warp][lane] = make_int2(ci, cj);
+    __syncwarp();
+    const int steps = __reduce_max_sync(kFull, n);
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+      const int2 a = chunk[warp][gbase + t];
+      int key = link_key<int>(links[0], (gl - t) & (kMaxPred - 1), a.x, a.y);
+#pragma unroll
+      for (int k = 1; k < kLinks; ++k) {
+        key = max(key, link_key<int>(links[k], kMaxPred - G * k + gl - t,
+                                     a.x, a.y));
+      }
+      int top = 0;
+#pragma unroll
+      for (int r = 0; r < kGroups; ++r) {
+        const int v = __reduce_max_sync(kFull, g == r ? key : 0);
+        top = g == r ? v : top;
+      }
+      const int sc = key_score(top);
+      const bool mine = gl == t && t < n;
+      links[0].i = mine ? ci : links[0].i;
+      links[0].j = mine ? cj : links[0].j;
+      links[0].sc = mine ? sc : links[0].sc;
+      ck = mine ? top : ck;
+    }
+    // the chunk's first match of its greatest score, if above the best
+    int top = -1;
+#pragma unroll
+    for (int r = 0; r < kGroups; ++r) {
+      const int v = __reduce_max_sync(
+          kFull, g == r && gl < n ? links[0].sc : -1);
+      top = g == r ? v : top;
+    }
+    const unsigned first =
+        (__ballot_sync(kFull, gl < n && links[0].sc == top) >> gbase) &
+        (G == 32 ? kFull : (1u << G) - 1);
+    if (n > 0 && top > best_sc) {
+      best_sc = top;
+      best_a = base + __ffs(first) - 1;
+    }
+    if (gl < n) {
+      const int dist = key_distance(ck);
+      mi[base + gl] = ci;
+      mj[base + gl] = cj;
+      mp[base + gl] = dist;
+      sum += static_cast<unsigned>(dist) *
+             static_cast<unsigned>(base + gl + 1);
+    }
+    const Link oldest = links[kLinks - 1];
+#pragma unroll
+    for (int k = kLinks - 1; k > 0; --k) links[k] = links[k - 1];
+    links[0] = oldest;
+    base += n;
+    filled = 0;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1) sum += __shfl_xor_sync(kFull, sum, d, G);
+  if (p < n_prob && gl == 0) {
+    best_out[p] = best_a;
+    sum_out[p] = sum;
+  }
+}
+
+__global__ void __launch_bounds__(kProbeThreads)
+warp_dp_check(const uint8_t* __restrict__ reads, size_t n_prob, int lx,
+              int ly, const int32_t* __restrict__ idx_ref,
+              const int32_t* __restrict__ idx_alt, int per_read,
+              const unsigned long long* __restrict__ keys,
+              const int32_t* __restrict__ pos,
+              const int32_t* __restrict__ hap_len,
+              const long long* __restrict__ ends, int32_t* match_i,
+              int32_t* match_j, int32_t* match_prev,
+              long long* __restrict__ best_out,
+              unsigned* __restrict__ sum_out) {
+  __shared__ Ring rings[kProbeWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t p = static_cast<size_t>(blockIdx.x) * kProbeWarps + warp;
+  if (p >= n_prob) return;
+  const Problem q = load_problem(reads, lx, ly, idx_ref, idx_alt, per_read,
+                                 keys, pos, hap_len, p);
+  const long long start = p ? ends[p - 1] : 0;
+  long long best = -1;
+  unsigned sum = 0;
+  if (q.len_x >= kK && q.len_y >= kK && ends[p] != start) {
+    const Chain ch = chain_dp<int>(q, ends, p, 0, match_i, match_j,
+                                   match_prev, rings[warp]);
+    const long long in_ring = (ch.count + 31) / 32 - kRing;
+    for (long long a = lane; a < ch.count; a += 32) {
+      const long long c = a / 32;
+      const int d = c >= in_ring
+                        ? rings[warp].dist[c & (kRing - 1)][a & 31]
+                        : ch.prev[a];
+      sum += static_cast<unsigned>(d) * static_cast<unsigned>(a + 1);
+    }
+    best = ch.best;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(kFull, sum, d);
+  if (lane == 0) {
+    best_out[p] = best;
+    sum_out[p] = sum;
+  }
+}
+
+// lanes: 0 for warp_dp_check, else G of group_dp_probe; 0 = ok
+extern "C" int mapping_probe_launch(
+    int lanes, const void* reads, int n_reads, int lx, int ly,
+    const void* idx_ref, const void* idx_alt, int per_read, const void* keys,
+    const void* pos, const void* hap_len, const void* ends, void* match_i,
+    void* match_j, void* match_prev, void* best_out, void* sum_out,
+    void* stream) {
+  const size_t n_prob = per_read * static_cast<size_t>(n_reads);
+  const size_t per_block = kProbeWarps * (lanes ? 32 / lanes : 1);
+  const unsigned blocks =
+      static_cast<unsigned>((n_prob + per_block - 1) / per_block);
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, kProbeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(reads), n_prob, lx, ly,
+        static_cast<const int32_t*>(idx_ref),
+        static_cast<const int32_t*>(idx_alt), per_read,
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const int32_t*>(pos),
+        static_cast<const int32_t*>(hap_len),
+        static_cast<const long long*>(ends), static_cast<int32_t*>(match_i),
+        static_cast<int32_t*>(match_j), static_cast<int32_t*>(match_prev),
+        static_cast<long long*>(best_out), static_cast<unsigned*>(sum_out));
+  };
+  switch (lanes) {
+    case 0: launch(warp_dp_check); break;
+    case 32: launch(group_dp_probe<32>); break;
+    case 16: launch(group_dp_probe<16>); break;
+    case 8: launch(group_dp_probe<8>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+'''
+MAPPING_LANES = (32, 16, 8)
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
@@ -759,7 +1020,8 @@ def registers(library, symbol):
 
 def phase_build():
     """Builds every library at once; returns the three kernels' paths, the
-    two probes' and the DPX rate probe's."""
+    two SASS probes', the DPX rate probe's and those of band_build's split:
+    the chain DP, lookups and mapping probes."""
     from vartrix_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -768,13 +1030,20 @@ def phase_build():
                 _build.band_bounds_library, _build.cramio_library,
                 lambda: build_probe("candidate_probe", PROBE_SRC),
                 lambda: build_probe("cell_probe", CELL_PROBE_SRC),
-                lambda: build_probe("dpx_rate", DPX_RATE_SRC, "-shared"))
+                lambda: build_probe("dpx_rate", DPX_RATE_SRC, "-shared"),
+                lambda: build_probe("chain_dp_probe", product_probe_source(
+                    _build.BAND_BUILD_SRC), "-shared"),
+                lambda: build_probe("lookups_probe", product_probe_source(
+                    _build.BAND_BUILD_SRC, lookups=True), "-shared"),
+                lambda: build_probe("mapping_probe", MAPPING_PROBE_SRC,
+                                    "-shared"))
     with ThreadPoolExecutor(max_workers=len(builders)) as ex:
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
-        f"band_bounds.cpp + cramio.cpp + the candidate, cell and DPX rate "
-        f"probes in {time.perf_counter() - t0:.2f}s")
+        f"band_bounds.cpp + cramio.cpp + the candidate, cell, DPX rate, "
+        f"chain DP, lookups and mapping probes in "
+        f"{time.perf_counter() - t0:.2f}s")
     log("  libcramio: " + _build.build_log(paths[5]).splitlines()[0])
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -839,7 +1108,7 @@ def phase_sass(paths):
     from the probe) and band_build's DP step (one warp step scores 64
     candidates, so its warp instructions x 32 lanes / 64, for
     information). Returns a dict of them."""
-    kern, banded, band, probe, cell_probe, _ = paths
+    kern, banded, band, probe, cell_probe = paths[:5]
     n_instr, n, hist = max(sass_loops(kern, MAIN_KERNEL_SYMBOL,
                                       PACKED_CELL_OPCODE),
                            key=lambda t: t[1])
@@ -886,8 +1155,11 @@ def phase_sass(paths):
                      - probe_loops["_Z10load_probe"])
     if per_candidate <= 0:
         fail("the candidate probe's loop is no longer than the load probe's")
-    n_instr, n, hist = min(sass_loops(band, CHAIN_KERNEL_SYMBOL,
-                                      CHAIN_OPCODE), key=lambda t: t[0])
+    # the DP step's hot loop: the one of the most warp steps per pass (a
+    # full chunk's, unrolled), then the fewest instructions
+    n_instr, n, hist = max(sass_loops(band, CHAIN_KERNEL_SYMBOL,
+                                      CHAIN_OPCODE),
+                           key=lambda t: (t[1], -t[0]))
     log(f"sass: {CHAIN_KERNEL_SYMBOL} DP step, per {CHAIN_OPCODE}: "
         + _describe(n_instr, n, hist))
     log(f"sass: a chain candidate's own work {per_candidate} instructions "
@@ -895,7 +1167,7 @@ def phase_sass(paths):
         f"{n_instr / n * 32 / 64:.4f} per candidate (64 per warp step)")
     return dict(cell=cell, cell_dpx=cell_dpx, packed=packed,
                 packed_dpx=packed_dpx, scalar=scalar, zones=zones,
-                per_candidate=per_candidate)
+                per_candidate=per_candidate, chain_step=n_instr / n)
 
 
 def phase_equality(rng):
@@ -1127,16 +1399,28 @@ def phase_banded_equality(rng, threads):
         sync()
         bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
                   for g, h, q in zip(got, host, plain))
-        if name in ("main", "repetitive"):  # the 64-bit chain keys
-            saved, sw_cuda.BAND_WIDE_KEYS_LX = sw_cuda.BAND_WIDE_KEYS_LX, 0
-            try:
-                wide = sw_cuda.band_bounds(xt, ht, irt, iat, index)
-            finally:
-                sw_cuda.BAND_WIDE_KEYS_LX = saved
-            nw = sum(int((w != g).sum().item()) for w, g in zip(wide, got))
-            log(f"band_build {name:11s} 64-bit chain keys: mismatches vs "
-                f"32-bit {nw}")
-            bad += nw
+        if name in ("main", "repetitive"):
+            # the 64-bit chain keys and the global-work route, each forced
+            # by its width threshold, against the 32-bit keys in shared
+            # memory (the route this width takes)
+            saved = sw_cuda.BAND_WIDE_KEYS_LX, sw_cuda.BAND_SHARED_LX
+            res = []
+            for wide_keys, rows_lx in ((0, saved[1]), (saved[0], 0), (0, 0)):
+                sw_cuda.BAND_WIDE_KEYS_LX = wide_keys
+                sw_cuda.BAND_SHARED_LX = rows_lx
+                try:
+                    other = sw_cuda.band_bounds(xt, ht, irt, iat, index)
+                finally:
+                    sw_cuda.BAND_WIDE_KEYS_LX, sw_cuda.BAND_SHARED_LX = saved
+                nw = sum(int((w != g).sum().item())
+                         for w, g in zip(other, got))
+                res.append(f"{'64' if wide_keys == 0 else '32'}-bit keys, "
+                           f"{'global' if rows_lx == 0 else 'shared'} rows "
+                           f"{nw}")
+                bad += nw
+            log(f"band_build {name:11s} "
+                f"{sw_cuda.band_route(x.shape[1])} route, 32-bit keys, "
+                "against: " + "; ".join(res))
         band_worst = max(band_worst, *(
             int(np.abs(g.cpu().numpy().astype(np.int64) - h).max(initial=0))
             for g, h in zip(got, host)))
@@ -1174,7 +1458,8 @@ def phase_banded_equality(rng, threads):
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     matches = match_counts(xt, ht, irt, iat)
     ranges = sw_cuda.band_ranges(torch.cumsum(matches, 0).cpu().numpy(),
-                                 x.shape[1], sw_cuda.BAND_SCRATCH_BYTES)
+                                 x.shape[1], sw_cuda.BAND_SCRATCH_BYTES,
+                                 sw_cuda.band_route(x.shape[1]))
     t0 = time.perf_counter()
     got = sw_cuda.band_bounds(xt, ht, irt, iat)
     sync()
@@ -1497,7 +1782,7 @@ def phase_timing(rng, sass, clock_hz, rate_path):
                 library_ms=None, scalar_ms=scalar_ms)
 
 
-def phase_banded_timing(rng, sass, clock_hz, threads):
+def phase_banded_timing(rng, sass, clock_hz, threads, probes):
     """band_build and sw_banded at the main bucket shape: kernel and plain
     times, bounds, and what the zones cost.
 
@@ -1517,7 +1802,19 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
     each read against its ref row, then its alt row), identity indices,
     timed in turns with the pair mode (pair, rows, rows, pair): the same
     bounds, counted the same way, with the rows' bytes (a read, a
-    haplotype row and an index per problem; int32 scores out)."""
+    haplotype row and an index per problem; int32 scores out).
+
+    band_build's time split (band_split): the count pass, the device sum
+    and the host read of the total, and the chain pass, which the chain DP
+    probe (the kernel stopped where its DP ends) cuts into the DP and the
+    traceback with the band fill, and the lookups probe (also without its
+    DP steps) cuts the DP into its lookups and its DP steps; and the chain
+    DP under other problem-to-lane mappings (mapping_split). probes: the
+    paths of the chain DP, lookups and mapping probes.
+
+    Where band_build's DP step issues fewer instructions per candidate,
+    with its upkeep, than the bound charges a candidate, the bound is no
+    lower bound of this kernel, and no share of it is reported."""
     import numpy as np
     import torch
 
@@ -1571,6 +1868,8 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
                + jhi.nbytes)
     b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
     b_bound = max(b_ops_ms, b_bytes_ms)
+    step = sass["chain_step"] * 32 / 64  # the DP step's, per candidate
+    bound_holds = step >= per_candidate
     log(f"timing band_build at lx={MAIN_LX} ly={MAIN_LY}, {pairs} pairs: "
         f"{band_ms:.4f} ms ({band_ms / pairs * 1e6:.4f} ns per pair; count, "
         f"device sum, one read of the total, chain; the index built "
@@ -1583,11 +1882,37 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
         f"problem) x {per_candidate} instructions (the probe's SASS)) / "
         f"{issue_per_s:.6g} instructions/s = {b_ops_ms:.4f} ms; {b_bytes} "
         f"bytes / {HBM_BYTES_PER_S:.3g} B/s = {b_bytes_ms:.4f} ms; bound "
-        f"{b_bound:.4f} ms, {100 * b_bound / band_ms:.1f} % of the kernel's "
-        "time; library_ms null: no PyTorch call builds a chained band")
+        f"{b_bound:.4f} ms"
+        + (f", {100 * b_bound / band_ms:.1f} % of the kernel's time"
+           if bound_holds else
+           f"; band_build's own DP step issues {step:.4f} per candidate, "
+           f"upkeep included, below the {per_candidate} charged: at its "
+           f"{step:.4f} the candidates take "
+           f"{cand * step / issue_per_s * 1e3:.4f} ms, so the bound is no "
+           "lower bound here and no share of it is reported")
+        + "; library_ms null: no PyTorch call builds a chained band")
+    dp_probe, lookups_probe, mapping_probe = probes
+    split = band_split(sw_cuda._band_kernel(),
+                       {"dp": sw_cuda.bind_band_library(dp_probe),
+                        "lookups": sw_cuda.bind_band_library(lookups_probe)},
+                       args, index, sw_cuda.band_route(MAIN_LX),
+                       (jlo_t, jhi_t))
+    n_match = int(counts.sum())
+    log_split("band_build", split, band_ms,
+              n_match * sass["chain_step"] / (issue_per_s / 32) * 1e3)
+    mapping = mapping_split(mapping_probe, sw_cuda._band_kernel(), args,
+                            index)
+    log("timing band_build chain DP by mapping (the mapping probe: lookups, "
+        "gathering and DP steps, no traceback; best matches and "
+        "predecessor distances equal to band_build's): " + ", ".join(
+            f"{lanes} lanes per problem {ms:.4f} ms ({per:.4f} SASS per "
+            f"candidate)" for lanes, (ms, per) in mapping.items())
+        + f"; band_build's own chain DP probe {split['dp']:.4f} ms")
     band = dict(ms=band_ms, plain_ms=band_plain_ms, bound_ms=b_bound,
                 bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes",
-                library_ms=None)
+                library_ms=None, split=split,
+                mapping_ms={lanes: ms for lanes, (ms, _) in mapping.items()},
+                share_of_bound=b_bound / band_ms if bound_holds else None)
     # the plain rows carry a haplotype row and an index per problem
     rows_in = xr.numel() + yr.numel() + 4 * pairs
     rb_bytes_ms = (rows_in + jlo.nbytes + jhi.nbytes) / HBM_BYTES_PER_S * 1e3
@@ -1600,8 +1925,9 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
         + f" ms in turns ({100 * (band_rows_ms / band_ms - 1):+.1f} %); "
         f"plain {band_rows_plain_ms:.3f} ms; bound {rb_bound:.4f} ms "
         f"(operations {b_ops_ms:.4f} ms as the pair mode's, "
-        f"{rows_in + jlo.nbytes + jhi.nbytes} bytes {rb_bytes_ms:.4f} ms), "
-        f"{100 * rb_bound / band_rows_ms:.1f} % of the kernel's time")
+        f"{rows_in + jlo.nbytes + jhi.nbytes} bytes {rb_bytes_ms:.4f} ms)"
+        + (f", {100 * rb_bound / band_rows_ms:.1f} % of the kernel's time"
+           if bound_holds else ", no share reported (as the pair mode)"))
     band_rows = dict(ms=band_rows_ms, plain_ms=band_rows_plain_ms,
                      bound_ms=rb_bound, library_ms=None,
                      bound_by="operations" if b_ops_ms >= rb_bytes_ms
@@ -1674,6 +2000,181 @@ def phase_banded_timing(rng, sass, clock_hz, threads):
                        bound_by="operations" if ops_ms >= r_bytes_ms
                        else "bytes", library_ms=None)
     return band, banded, index_timing, band_rows, banded_rows
+
+# the lines of csrc/band_build.cu's chain kernel after which its chain DP
+# is done, and where each chunk's DP steps start: the chain DP probe, a
+# copy of the source, returns at the first; the lookups probe at both
+CHAIN_DP_END = "// -- the chain DP ends here --"
+CHUNK_DP_START = "// -- a chunk's DP starts here --"
+SPLIT_PARTS = ("count", "device sum", "host read", "chain")
+
+
+def probe_source(src, lookups=False):
+    """band_build.cu's source `src` with `return;` after CHAIN_DP_END,
+    where every warp of the chain kernel has run its problem's DP: the
+    kernel without its traceback, band fill and bound write. With
+    `lookups`, each chunk also stores its matches' i ^ j (so that what
+    finds and gathers them stays) and returns at CHUNK_DP_START: the
+    chain pass's lookups and gathering of matches alone. None when `src`
+    does not hold each mark it needs once."""
+    marks = (CHAIN_DP_END, CHUNK_DP_START) if lookups else (CHAIN_DP_END,)
+    if any(src.count(m) != 1 for m in marks):
+        return None
+    src = src.replace(CHAIN_DP_END, CHAIN_DP_END + "\n  return;")
+    if lookups:
+        src = src.replace(CHUNK_DP_START, CHUNK_DP_START
+                          + "\n    if (lane < n) mi[base + lane] = ci ^ cj;"
+                          "\n    return;")
+    return src
+
+
+def product_probe_source(src_path, lookups=False):
+    """probe_source of the checkout's band_build.cu, which must hold its
+    marks."""
+    with open(src_path) as f:
+        src = probe_source(f.read(), lookups)
+    if src is None:
+        fail(f"{src_path} does not mark its chain DP's end and its chunks' "
+             "DP steps once each")
+    return src
+
+
+def band_split(lib, probes, args, index, route, expect=None, warmup=3,
+               reps=15):
+    """A band build of `lib` as the wrapper runs it (sw_cuda._launch_band),
+    with CUDA events between its steps: the count pass, the device sum
+    (torch.cumsum), the host read of the total (the card waits for it and
+    the next launch), the chain pass (sw_cuda.band_chain on `route`); and
+    the chain passes of `probes` (probe_source builds: "dp", the kernel
+    stopped after its DP; "lookups", also without its DP steps; either
+    None: not measured), timed in turns with it (full, dp, lookups,
+    lookups, dp, full). Returns the medians in ms: SPLIT_PARTS, "total",
+    "dp" and "lookups". `expect`: bounds the full build must equal."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    problems, per_read = sw_cuda.band_problems(*args, index)
+    R, lx = args[0].shape
+    P, H = per_read * R, args[1].shape[0]
+    jlo = torch.empty((lx, P), dtype=torch.int32, device="cuda")
+    jhi = torch.empty_like(jlo)
+    counts = torch.empty(P, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(chain_lib):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        err = lib.band_build_count(*problems, counts.data_ptr(), stream)
+        ev[1].record()
+        ends = torch.cumsum(counts, 0)
+        ev[2].record()
+        total = int(ends[-1])
+        ev[3].record()
+        err = err or sw_cuda.band_chain(chain_lib, problems, P, H, ends,
+                                        total, jlo, jhi, route)
+        ev[4].record()
+        ev[4].synchronize()
+        if err:
+            fail(f"band_build did not launch in the split ({err})")
+        return [ev[k].elapsed_time(ev[k + 1]) for k in range(4)] + [
+            ev[0].elapsed_time(ev[4])]
+
+    libs = {"full": lib, **{k: v for k, v in probes.items() if v}}
+    for _ in range(warmup):
+        for which in libs.values():
+            run(which)
+    times = collections.defaultdict(list)
+    for which in ("full", "dp", "lookups", "lookups", "dp", "full"):
+        if which not in libs:
+            continue
+        for _ in range(reps):
+            times[which].append(run(libs[which]))
+        if which == "full" and expect is not None and not (
+                torch.equal(jlo, expect[0]) and torch.equal(jhi, expect[1])):
+            fail("band_build's bounds in the split differ from the wrapper's")
+    out = {name: statistics.median(t[k] for t in times["full"])
+           for k, name in enumerate(SPLIT_PARTS + ("total",))}
+    for which in ("dp", "lookups"):
+        out[which] = (statistics.median(t[3] for t in times[which])
+                      if which in libs else None)
+    return out
+
+
+def log_split(name, split, ms, step_ms=None):
+    """One line of a band build's split (band_split); step_ms: its DP
+    steps at full issue, where known."""
+    dp, chain, look = split["dp"], split["chain"], split["lookups"]
+    steps = ""
+    if look is not None:
+        steps = (f"its lookups and gathering of matches (the lookups "
+                 f"probe's chain pass) {look:.4f} ms, its DP steps (the DP "
+                 f"probe's less the lookups probe's) {dp - look:.4f} ms"
+                 + (f" against {step_ms:.4f} ms at full issue (issue "
+                    f"efficiency {100 * step_ms / (dp - look):.1f} %)"
+                    if step_ms else "") + "; ")
+    log(f"timing {name} split: count pass {split['count']:.4f} ms, device "
+        f"sum {split['device sum']:.4f} ms, host read of the total and the "
+        f"next launch {split['host read']:.4f} ms, chain pass "
+        f"{chain:.4f} ms (its DP, the chain DP probe's chain pass, "
+        f"{dp:.4f} ms: {steps}traceback, band fill and bound write "
+        f"{chain - dp:.4f} ms); total {split['total']:.4f} ms, the "
+        f"wrapper's {ms:.4f} ms")
+
+
+def mapping_split(path, lib, args, index, warmup=2, reps=10):
+    """The chain DP under each mapping of MAPPING_LANES (the mapping
+    probe at `path`: lookups, gathering and DP steps, no traceback), each
+    problem's best match and checksum of predecessor distances held equal
+    to the kernel's own chain DP (warp_dp_check), timed in turns (32, 16,
+    8, 8, 16, 32). Returns {lanes: (median ms, SASS per candidate of its
+    DP step)}."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    probe = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    probe.mapping_probe_launch.restype = ci
+    probe.mapping_probe_launch.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci,
+                                           vp, vp, vp, vp, vp, vp, vp, vp,
+                                           vp, vp]
+    problems, per_read = sw_cuda.band_problems(*args, index)
+    P = per_read * args[0].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    counts = torch.empty(P, dtype=torch.int64, device="cuda")
+    if lib.band_build_count(*problems, counts.data_ptr(), stream):
+        fail("band_build's count pass did not launch for the mapping probe")
+    ends = torch.cumsum(counts, 0)
+    matches = torch.empty((3, max(int(ends[-1]), 1)), dtype=torch.int32,
+                          device="cuda")
+    best = torch.empty(P, dtype=torch.int64, device="cuda")
+    sums = torch.empty(P, dtype=torch.int32, device="cuda")
+
+    def launch(lanes):
+        if probe.mapping_probe_launch(
+                lanes, *problems, ends.data_ptr(), matches[0].data_ptr(),
+                matches[1].data_ptr(), matches[2].data_ptr(),
+                best.data_ptr(), sums.data_ptr(), stream):
+            fail(f"the mapping probe did not launch ({lanes} lanes)")
+
+    launch(0)
+    want = (best.clone(), sums.clone())
+    for lanes in MAPPING_LANES:
+        launch(lanes)
+        if not (torch.equal(best, want[0]) and torch.equal(sums, want[1])):
+            fail(f"the chain DP at {lanes} lanes per problem differs from "
+                 "band_build's")
+    times = collections.defaultdict(list)
+    for lanes in MAPPING_LANES + MAPPING_LANES[::-1]:
+        times[lanes].append(time_cuda(lambda: launch(lanes), warmup, reps))
+    out = {}
+    for lanes in MAPPING_LANES:
+        n_instr, n, _ = max(sass_loops(path, f"group_dp_probeILi{lanes}E",
+                                       CHAIN_OPCODE),
+                            key=lambda t: (t[1], -t[0]))
+        out[lanes] = (statistics.median(times[lanes]), n_instr / n * 32 / 64)
+    return out
 
 
 def time_index(ht, issue_per_s):
@@ -2473,6 +2974,107 @@ def phase_sparse(work, data, device_args=("--backend", "cuda"),
             + f" | {n} ({strategy}) | {rss:.1f} | {after}")
 
 
+def band_ab(baseline, rng, probes):
+    """band_build of this checkout against that of `baseline` (the root
+    of another checkout, e.g. the parent commit's, unpacked by git
+    archive) in one process: both sources built here, then at the main
+    bucket shape in both per_read modes, in turns (baseline, this, this,
+    baseline), each build's split (band_split, a part whose mark the
+    baseline lacks not measured); the bounds must be equal. PR 11's
+    kernel, whose split PERF.md records (one chain kernel, its band rows
+    always in a work buffer, no marks), gets the DP-end mark before its
+    band fill and its work buffer on every width."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    with open(os.path.join(baseline, "vartrix_tpu_torch", "csrc",
+                           "band_build.cu")) as f:
+        src = f.read()
+    pr11 = "kSharedRows" not in src
+    if pr11:
+        fill = "  __syncwarp();\n  // band fill over this problem's rows"
+        src = src.replace(fill, f"  {CHAIN_DP_END}\n" + fill, 1)
+    sources = {"baseline_band_build": src,
+               "baseline_chain_dp_probe": probe_source(src),
+               "baseline_lookups_probe": probe_source(src, lookups=True)}
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = {name: ex.submit(build_probe, name, text, "-shared")
+                 for name, text in sources.items() if text}
+        built = {name: f.result() for name, f in built.items()}
+    base = (sw_cuda.bind_band_library(built["baseline_band_build"]),
+            {part: sw_cuda.bind_band_library(built[name])
+             if name in built else None
+             for part, name in (("dp", "baseline_chain_dp_probe"),
+                                ("lookups", "baseline_lookups_probe"))})
+    n_instr, n, hist = max(sass_loops(
+        built["baseline_band_build"],
+        "chain_kernelIiE" if pr11 else CHAIN_KERNEL_SYMBOL, CHAIN_OPCODE),
+        key=lambda t: (t[1], -t[0]))
+    log(f"baseline {baseline}: its chain DP step issues "
+        f"{n_instr / n * 32 / 64:.4f} SASS instructions per candidate ("
+        + _describe(n_instr, n, hist) + ")")
+    new = (sw_cuda._band_kernel(),
+           {"dp": sw_cuda.bind_band_library(probes[0]),
+            "lookups": sw_cuda.bind_band_library(probes[1])})
+    x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                                  read_len=(140, 150), hap_len=(180, 224))
+    args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    xr = args[0].repeat_interleave(2, dim=0)
+    yr = args[1][torch.stack([args[2], args[3]], 1).reshape(-1).long()]
+    ident = torch.arange(len(xr), dtype=torch.int32, device="cuda")
+    modes = {"pair": (args, sw_cuda.band_index(args[1])),
+             "rows": ((xr, yr, ident, None), sw_cuda.band_index(yr))}
+    out = {}
+    for mode, (a, index) in modes.items():
+        expect = sw_cuda.band_bounds(*a, index)
+        splits = collections.defaultdict(list)
+        for who in ("baseline", "this", "this", "baseline"):
+            lib, probe = base if who == "baseline" else new
+            route = ("global" if who == "baseline" and pr11
+                     else sw_cuda.band_route(MAIN_LX))
+            splits[who].append(band_split(lib, probe, a, index, route,
+                                          expect))
+        for who in ("baseline", "this"):
+            split = {k: (None if splits[who][0][k] is None else
+                         statistics.median(s[k] for s in splits[who]))
+                     for k in splits[who][0]}
+            log_split(f"band_build {mode} ({who})", split, split["total"])
+            out[(mode, who)] = split
+        log(f"band_build {mode}: this checkout "
+            f"{out[(mode, 'this')]['total']:.4f} ms against the baseline's "
+            f"{out[(mode, 'baseline')]['total']:.4f} ms in turns ("
+            + ", ".join(f"{s['total']:.4f}" for who in ("baseline", "this")
+                        for s in splits[who]) + "), bounds equal")
+    return out
+
+
+def band_main(baseline=None):
+    """The band builder alone (`python3 chip_smoke.py --band [--baseline
+    DIR]`): phases 1 and 2, the SASS counts, phase 3's banded families,
+    phase 4's banded timing with band_build's split and, given a baseline
+    checkout, band_ab against it."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
+    card, clock_hz = phase_card()
+    paths = phase_build()
+    sass = phase_sass(paths)
+    threads = os.cpu_count() or 1
+    rng = np.random.default_rng(2024)
+    phase_banded_equality(rng, threads)
+    log(f"banded equality done at {time.perf_counter() - t_start:.1f}s")
+    phase_banded_timing(rng, sass, clock_hz, threads, paths[6:9])
+    if baseline:
+        band_ab(baseline, rng, paths[6:9])
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(card)
+
+
 def main():
     if not os.path.exists(os.path.join(HERE, "vartrix_tpu_torch",
                                        "__init__.py")):
@@ -2519,10 +3121,10 @@ def main():
             log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in "
                 "a worker process, during phase 3)")
             e2e_cram = pool.submit(write_cram_of, data)
-            timing = phase_timing(rng, sass, clock_hz, paths[-1])
+            timing = phase_timing(rng, sass, clock_hz, paths[5])
             (band_timing, banded_timing, index_timing, band_rows_timing,
              banded_rows_timing) = phase_banded_timing(rng, sass, clock_hz,
-                                                       threads)
+                                                       threads, paths[6:9])
             done("timing")
             t0 = time.perf_counter()
             sparse, sparse_s = sparse_data.result()
@@ -2593,6 +3195,14 @@ def main():
         })
         if "scalar_ms" in t:
             record["kernels"][-1]["word32_route_ms"] = t["scalar_ms"]
+        if "split" in t:  # band_build: its steps (band_split), mappings
+            record["kernels"][-1].update(
+                split_ms=t["split"], mapping_ms=t["mapping_ms"],
+                share_of_bound=t["share_of_bound"])
+            if t["share_of_bound"] is None:
+                record["kernels"][-1]["share_of_bound_note"] = (
+                    "its DP step issues fewer instructions per candidate "
+                    "than the bound charges: the bound is no lower bound")
         if name == "sw_pair":  # its plain-row route on the Python host
             record["kernels"][-1]["python_host_launches"] = {
                 k: v for k, v in launches.items() if k.startswith("sw_pair_")}
@@ -2606,4 +3216,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--band" in sys.argv[1:]:
+        if not os.path.exists(os.path.join(HERE, "vartrix_tpu_torch",
+                                           "__init__.py")):
+            fail("run from a checkout of the repository: vartrix_tpu_torch/ "
+                 "is missing")
+        argv = sys.argv[1:]
+        band_main(argv[argv.index("--baseline") + 1]
+                  if "--baseline" in argv else None)
+    else:
+        main()

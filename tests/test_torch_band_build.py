@@ -266,6 +266,223 @@ def test_strip_loop_transliteration_matches_plain_dp(bands):
         assert core > 0 and exp.max() > 0  # the core zone ran
 
 
+# ------------------------------------- the band builder's chain pass
+
+K, W, MAX_PRED = 6, 20, 64
+RING = 8  # chunks of matches a warp keeps in shared memory (kRing)
+INT32_MAX, INT32_MIN = 2**31 - 1, -2**31
+LANES = np.arange(32)
+
+
+def link_keys(link, near, i, j):
+    """The kernel's `link_key` over 32 lanes: each lane's link (i, j, sc;
+    i = INT32_MAX: none) as a candidate for match (i, j), score x 64 +
+    nearness when the link lies before (i, j) in both coordinates and
+    beats the start score, else 0; kK - overlap as a three-way minimum,
+    the gap penalty as g + 5 min(g, 1)."""
+    li, lj, lsc = (a.astype(np.int64) for a in link)
+    di, dj = i - li, j - lj
+    step = np.minimum(np.minimum(di, dj), K)
+    g = np.abs(di - dj)
+    sc = lsc + step - (g + 5 * np.minimum(g, 1))
+    return np.where((step > 0) & (sc > K), sc * MAX_PRED + near, 0)
+
+
+def lookup_run(x, keys, i, n_j):
+    """The kernel's `lookup`: the run [lo, hi) of keys (uint64 [n_j],
+    sorted) matching read position i: its start by a binary search, its
+    end by galloping from there and a binary search within the last
+    gallop."""
+    kx = sum(int(x[i + t]) << (8 * t) for t in range(K))
+    lo = hi = int(np.searchsorted(keys, kx, "left"))
+    if lo < n_j and keys[lo] == kx:  # keys[hi] == kx
+        step = 1
+        while hi + step < n_j and keys[hi + step] == kx:
+            hi += step
+            step *= 2
+        end = min(hi + step, n_j)
+        hi += 1 + int(np.searchsorted(keys[hi + 1 : end], kx, "right"))
+    return lo, hi
+
+
+def chain_pass(x, y, hkeys, hpos):
+    """Python transliteration of csrc/band_build.cu's chain pass for one
+    problem: uint8 read x [lx] against haplotype y [ly] with its index
+    (hkeys, hpos: its 6-mer keys sorted by (key, j) and their positions)
+    -> int32 (jlo, jhi) [lx]. chain_dp: the runs of 32 read positions
+    (lookup_run), their matches laid into the chunk's 32 lanes by a search
+    over the runs' starts, one warp step per match (each lane's two links, cur and prev, at nearness
+    (lane - t) & 63 and that ^ 32; the warp maximum of the keys; lane t's
+    link and key), the chunk's first match of its greatest score if above
+    the best, the chunk kept in the ring of the last RING chunks with each
+    match's predecessor distance (the chunk it displaces to the scratch),
+    cur and prev swapped. chain_fill: the traceback over the chunks from
+    the best match, read from the ring or the scratch (a chunk's anchors:
+    the ancestors of its entry lane, every lane's found by doubling; each
+    anchor's diagonal trimmed where the next anchor on its diagonal takes
+    over and its box left out within 15 rows of it), then the corner
+    diagonals; the rows' min/max in the order the lanes apply them. Then
+    the kernel's bounds of each row."""
+    lx = len(x)
+    len_x = int(np.flatnonzero(x != 0)[-1]) + 1 if (x != 0).any() else 0
+    len_y = int(np.flatnonzero(y != 1)[-1]) + 1 if (y != 1).any() else 0
+    jlo, jhi = np.zeros(lx, np.int32), np.zeros(lx, np.int32)
+    if len_x and len_y and (len_x < K or len_y < K):  # a short pair
+        jhi[:len_x] = len_y
+        return jlo, jhi
+    n_i, n_j = len_x - K + 1, len_y - K + 1
+    if n_i <= 0 or n_j <= 0:
+        return jlo, jhi
+    keys = hkeys[:n_j].astype(np.uint64)
+    cur = [np.full(32, INT32_MAX, np.int64), np.zeros(32, np.int64),
+           np.zeros(32, np.int64)]
+    prev = [a.copy() for a in cur]
+    ci, cj, ck = (np.zeros(32, np.int64) for _ in range(3))
+    ring, scratch = [None] * RING, []  # chunks: 32 of (i, j, distance)
+    st = dict(filled=0, base=0, best_sc=-1, best_a=0)
+
+    def dp_chunk(n):
+        for t in range(n):
+            i, j = ci[t], cj[t]
+            near = (LANES - t) & (MAX_PRED - 1)
+            key = int(np.maximum(link_keys(cur, near, i, j),
+                                 link_keys(prev, near ^ 32, i, j)).max())
+            sc = max(key // MAX_PRED, K)
+            cur[0][t], cur[1][t], cur[2][t] = ci[t], cj[t], sc
+            ck[t] = key
+        # the chunk's first match of its greatest score, if above the best
+        top = int(cur[2][:n].max())
+        if top > st["best_sc"]:
+            st["best_sc"] = top
+            st["best_a"] = st["base"] + int(np.flatnonzero(cur[2][:n] ==
+                                                           top)[0])
+        # the ring's slot hands its chunk, RING back, to the scratch
+        slot = (st["base"] // 32) % RING
+        if st["base"] >= 32 * RING:
+            scratch.extend(ring[slot])
+        ring[slot] = list(zip(
+            ci.tolist(), cj.tolist(),
+            np.where(ck > 0, MAX_PRED - ck % MAX_PRED, 0).tolist()))[:n]
+
+    for i0 in range(0, n_i, 32):
+        lo, hi = np.zeros(32, np.int64), np.zeros(32, np.int64)
+        for lane in range(min(32, n_i - i0)):
+            lo[lane], hi[lane] = lookup_run(x, keys, i0 + lane, n_j)
+        incl = np.cumsum(hi - lo)
+        excl = incl - (hi - lo)
+        total, m0 = int(incl[31]), 0
+        while m0 < total:
+            filled = st["filled"]
+            take = min(32 - filled, total - m0)
+            for lane in range(filled, filled + take):
+                m, src = m0 + lane - filled, 0
+                for b in (16, 8, 4, 2, 1):
+                    if excl[src + b] <= m:
+                        src += b
+                ci[lane] = i0 + src
+                cj[lane] = hpos[lo[src] + m - excl[src]]
+            st["filled"] = filled + take
+            m0 += take
+            if st["filled"] == 32:
+                dp_chunk(32)
+                cur, prev = prev, cur
+                st["base"] += 32
+                st["filled"] = 0
+    if st["filled"]:
+        dp_chunk(st["filled"])
+    count = st["base"] + st["filled"]
+    if count == 0:  # no band
+        return jlo, jhi
+    rlo = np.full(len_x, INT32_MAX, np.int64)
+    rhi = np.full(len_x, INT32_MIN, np.int64)
+
+    def widen(r, a, b):
+        rlo[r] = min(rlo[r], a)
+        rhi[r] = max(rhi[r], b)
+
+    def diag(r0, r1, d):
+        for r in range(r0, r1):
+            widen(r, max(0, r + d - W), min(len_y, r + d + W + 1))
+
+    c, has_next = st["best_a"], False
+    next_i = next_j = back_i = back_j = 0
+    in_ring = (count + 31) // 32 - RING  # the first chunk in the ring
+    while c >= 0:
+        chunk = c & ~31
+        held = (ring[(chunk // 32) % RING] if chunk // 32 >= in_ring
+                else scratch[chunk : chunk + 32])
+        ai, aj, ad = (list(v) + [0] * (32 - len(held)) for v in zip(*held))
+        t = c - chunk
+        if c == st["best_a"]:
+            back_i, back_j = ai[t], aj[t]
+        # each lane's ancestors in the chunk by doubling: a mask, and the
+        # 2^k-th ancestor (itself when it has none in the chunk)
+        up = [l - ad[l] if 0 < ad[l] <= l else l for l in range(32)]
+        anc = [1 << l for l in range(32)]
+        for _ in range(5):
+            anc = [anc[l] | anc[up[l]] for l in range(32)]
+            up = [up[up[l]] for l in range(32)]
+        on = anc[t]
+        first = (on & -on).bit_length() - 1
+        c = chunk + first - ad[first] if ad[first] else -1
+        for lane in range(32):
+            if not (on >> lane) & 1:
+                continue
+            above = [l for l in range(lane + 1, 32) if (on >> l) & 1]
+            succ = bool(above) or has_next
+            si, sj = ((ai[above[0]], aj[above[0]]) if above
+                      else (next_i, next_j))
+            d = aj[lane] - ai[lane]
+            r1 = min(ai[lane] + K + W, len_x)
+            box = succ
+            if succ and sj - si == d:
+                r1 = min(r1, si - W)
+                box = si - ai[lane] > W - K + 1
+            diag(max(ai[lane] - W, 0), r1, d)
+            if box:
+                for r in range(max(0, ai[lane]), min(len_x, si + K)):
+                    widen(r, max(0, aj[lane]), min(len_y, sj + K))
+        next_i, next_j, has_next = ai[first], aj[first], True
+    back = min(next_i, next_j)
+    diag(max(next_i - back - W, 0), min(next_i + W, len_x), next_j - next_i)
+    i1, j1 = back_i + K, back_j + K
+    diag(max(i1 - W, 0), min(i1 + min(len_x - i1, len_y - j1) + W, len_x),
+         j1 - i1)
+    band = rlo < rhi
+    jlo[:len_x] = np.where(band, rlo, 0)
+    jhi[:len_x] = np.where(band, rhi, 0)
+    return jlo, jhi
+
+
+CHAIN_CASES = {**{n: (lambda n=n: rows_case(n)) for n in BOUND_FAMILIES},
+               "repetitive": repetitive_case,
+               "indels": lambda: pair_case(seed=67, R=120)}
+
+
+@pytest.mark.parametrize("per_read", [1, 2])
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_chain_pass_transliteration_matches_plain_and_host(name, per_read):
+    x, haps, idx_ref, idx_alt = CHAIN_CASES[name]()
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (x, haps, idx_ref, idx_alt)]
+    index = band_torch.band_index(t[1])
+    hkeys, hpos = index.keys.numpy(), index.pos.numpy()
+    P = per_read * len(x)
+    got = np.zeros((2, x.shape[1], P), np.int32)
+    for p, read, which in kernel_problems(len(x), per_read):
+        h = (idx_ref, idx_alt)[which][read]
+        got[0, :, p], got[1, :, p] = chain_pass(x[read], haps[h], hkeys[h],
+                                                hpos[h])
+    plain = band_torch.band_bounds(*t[:3], t[3] if per_read == 2 else None)
+    host = sw_native.band_bounds(x, haps, idx_ref,
+                                 idx_alt if per_read == 2 else idx_ref, 2)
+    for k in range(2):
+        np.testing.assert_array_equal(got[k], plain[k].numpy())
+        np.testing.assert_array_equal(
+            got[k], host[k] if per_read == 2 else host[k][:, 0::2])
+    assert got[1].any() != (name == "unseeded")  # bands, but unseeded
+
+
 # ------------------------------- the kernels' two layouts of problems
 
 def kernel_problems(n_reads, per_read):
@@ -318,24 +535,34 @@ def test_plain_row_codes_refused():
 
 # ------------------------------- the chain pass's problem ranges
 
+@pytest.mark.parametrize("route", ["global", "shared"])
 @pytest.mark.parametrize("counts, lx, budget", [
     ([0] * 7, 10, 1 << 30),                 # no matches: one range
     ([5, 0, 3, 9, 1, 2, 0, 4], 4, 200),     # several ranges
     ([1, 1000, 1, 1], 2, 100),              # one problem over the budget
     ([20] * 9, 3, 12 * 20 + 24),            # exactly one problem per range
 ])
-def test_band_ranges_cover_problems_within_budget(counts, lx, budget):
+def test_band_ranges_cover_problems_within_budget(counts, lx, budget, route):
     ends = np.cumsum(np.array(counts, np.int64))
-    ranges = sw_cuda.band_ranges(ends, lx, budget)
+    ranges = sw_cuda.band_ranges(ends, lx, budget, route)
     assert ranges[0][0] == 0 and ranges[-1][1] == len(counts)
     for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
         assert a1 == b0  # in order, no gap, no overlap
-    need = [12 * c + 8 * lx for c in counts]
+    # the global route's work rows take 8 bytes per read row; the shared
+    # route keeps them on the chip
+    need = [12 * c + (8 * lx if route == "global" else 0) for c in counts]
     for p0, p1 in ranges:
         assert p1 > p0
         assert p1 - p0 == 1 or sum(need[p0:p1]) <= budget
         if p1 < len(counts):  # greedy: the next problem would not fit
             assert sum(need[p0:p1 + 1]) > budget
+
+
+def test_band_route_by_width():
+    assert sw_cuda.band_route(160) == "shared"
+    assert sw_cuda.band_route(sw_cuda.BAND_SHARED_LX) == "shared"
+    assert sw_cuda.band_route(sw_cuda.BAND_SHARED_LX + 1) == "global"
+    assert sw_cuda.band_route(65_602) == "global"
 
 
 @pytest.fixture
@@ -347,10 +574,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "global"])
 @pytest.mark.parametrize("name", ["repetitive", "pairs_indels_empty_hap",
                                   "wide_40000", "shorter_than_k"])
-def test_band_build_kernel_matches_plain_on_card(cuda_device, name):
+def test_band_build_kernel_matches_plain_on_card(cuda_device, name, route,
+                                                 monkeypatch):
+    # the global route is forced on these narrow reads by its width limit
+    if route == "global":
+        monkeypatch.setattr(sw_cuda, "BAND_SHARED_LX", 0)
     x, haps, idx_ref, idx_alt = CASES[name]()
+    assert sw_cuda.band_route(x.shape[1]) == route
     args = [torch.from_numpy(np.ascontiguousarray(a))
             for a in (x, haps, idx_ref, idx_alt)]
     exp = band_torch.band_bounds(*args)

@@ -40,43 +40,57 @@
 //      matches of one read 6-mer are one run of the sorted keys, ascending
 //      in j. Pad rows (len_y = 0) stop after the length scan;
 //   2. count_kernel: one warp per problem; each lane takes one read
-//      position, looks its key up (two binary searches) and adds the run's
-//      length. The wrapper sums the counts on the card (torch.cumsum) and
+//      position, looks its key up (a binary search for the run's start,
+//      a gallop for its end) and adds the run's length. The wrapper sums the counts on the card (torch.cumsum) and
 //      reads the total once, so the match scratch is sized exactly: a
 //      repetitive pair may have (len_x - 5)(len_y - 5) matches, and the
 //      traceback needs every match's predecessor. Where all of a launch's
 //      matches would not fit the wrapper's scratch budget, it reads every
 //      problem's sum, cuts the problems into ranges that fit and runs the
 //      chain pass once per range;
-//   3. chain_kernel: one warp per problem of a range looks up the runs of
-//      32 read positions at once, then walks i in order and each run's j in
-//      order, so the matches come in (i, j) order, and runs the chain DP as
-//      it goes: the last 64 matches live in a ring of registers, two slots
-//      per lane, so each lane scores two candidate predecessors and one
-//      __reduce_max_sync over (score, nearness) keys applies the tie rules.
-//      Lane 0 stores each match and its distance to its predecessor; the
-//      warp then walks the best chain back, widening each anchor over a
-//      problem-major work buffer [problem][row] (coalesced across lanes),
-//      and writes the bounds in the DP's [row][problem] layout.
+//   3. chain_kernel: one warp per problem of a range, 8 problems per
+//      block. The DP: the warp looks up the runs of 32 read positions at
+//      once, lays their matches in (i, j) order into chunks of 32, match
+//      c + l of a chunk in lane l (its j loaded by that lane), and scores
+//      a chunk's matches one warp step each: the last 64 matches are two
+//      links per lane (the chunk before, and this chunk's or the one two
+//      back), so each lane scores two candidates and one __reduce_max_sync
+//      over (score x 64 + nearness) keys applies the tie rules; lane t
+//      keeps match t's link and key, and the chunk's best match is found
+//      once per chunk from its lanes' scores. The warp keeps its last 8
+//      chunks (matches and predecessor distances) in a shared-memory ring
+//      and hands older ones to the match scratch in device memory, 32 per
+//      store. The traceback reads them back a chunk at a time from the
+//      best match down: the chunk's anchors are its entry match's
+//      ancestors, found for all lanes at once by doubling, and each anchor
+//      lane widens the rows of its diagonal and of its box up to the next
+//      anchor, less what that anchor's own diagonal covers (the next
+//      anchor on the same diagonal takes its rows over, and within 15 rows
+//      its box), by atomics; then the corner diagonals. Width routes (the
+//      wrapper picks one by lx, ops/sw_cuda.band_route): up to
+//      BAND_SHARED_LX the band rows live in shared memory and the block
+//      writes its 8 problems' row r as 8 consecutive words of the DP's
+//      [row][problem] layout; wider reads keep them in a work buffer
+//      [problem][row] in device memory, which each warp writes out.
 //
 // Widths. A chain score is at most len_x, so its key (score x 64 +
 // nearness) fits int32 while lx < 2^25; past that the wrapper launches the
 // instantiation with 64-bit keys (two 32-bit warp reductions per match).
-// Match indices and scratch offsets are 64-bit; the ring addresses its
-// slots with a 32-bit index that steps back by 2^30 every 2^30 matches, and
-// a predecessor is stored as its distance (1..64), so no per-match value
-// passes 2^31.
+// Match counts and scratch offsets are 64-bit; the DP step itself counts
+// only the 32 matches of a chunk and a predecessor is stored as its
+// distance (1..64), so no per-match value passes 2^31.
 //
 // Bound. The bytes are small (reads, haplotypes and indices in, 8 bytes of
 // bounds per read row and problem out); the work is integer instructions:
 // len_x - 5 key lookups per problem plus, per match, its up to 64 chain
 // candidates at the cost of scoring one (`candidate` and one max), at the
 // instruction issue rate (chip_smoke.py prints both, and this kernel's own
-// SASS instructions per candidate beside them). The index takes the
-// all-pairs scans out of both passes; the chain DP's warp-wide step per
-// match (~2.4x the bound's instructions per candidate: the reduction,
-// the ring upkeep and the stores) is what remains between this kernel
-// and its bound.
+// SASS instructions per candidate beside them). The DP step scores a
+// candidate in fewer instructions than `candidate` and shares the
+// per-match upkeep (the broadcast, the reduction, the key's decoding, lane
+// t's link) over 64 candidates, so the bound over-charges the candidates
+// and chip_smoke.py reports no share of it; instead it splits the chain
+// pass into its lookups, its DP steps and its traceback with the fill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,11 +103,13 @@ constexpr int kMaxPred = 64;  // matches before each match the DP visits
 constexpr int kMatch = 1;
 constexpr int kGapOpen = -5;
 constexpr int kGapExtend = -1;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // count pass: a warp per problem
 constexpr int kWarps = kThreads / 32;
+constexpr int kChainThreads = 256;  // chain pass: a warp per problem
+constexpr int kChainWarps = kChainThreads / 32;
+constexpr int kRing = 8;  // chunks of 32 matches a warp keeps on the chip
 constexpr int kIndexThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRebase = 1 << 30;  // ring index step-back
 
 __device__ __forceinline__ unsigned long long kmer_key(
     const uint8_t* __restrict__ p) {
@@ -224,14 +240,25 @@ __device__ Problem load_problem(const uint8_t* __restrict__ reads, int lx,
 }
 
 // This lane's run [lo, hi) of the haplotype's sorted keys: the matches of
-// read position i (none when i >= n_i).
+// read position i (none when i >= n_i). The run's start by a binary
+// search; its end by galloping from there (runs are mostly 0 or 1 long),
+// then a binary search within the last gallop.
 __device__ __forceinline__ void lookup(const Problem& q, int i, int n_i,
                                        int n_j, int& lo, int& hi) {
   lo = hi = 0;
   if (i < n_i) {
     const unsigned long long kx = kmer_key(q.x + i);
     lo = search<false>(q.keys, n_j, kx);
-    hi = lo + search<true>(q.keys + lo, n_j - lo, kx);
+    hi = lo;
+    if (lo < n_j && q.keys[lo] == kx) {  // keys[hi] == kx
+      int step = 1;
+      while (hi + step < n_j && q.keys[hi + step] == kx) {
+        hi += step;
+        step <<= 1;
+      }
+      const int end = min(hi + step, n_j);
+      hi += 1 + search<true>(q.keys + hi + 1, end - hi - 1, kx);
+    }
   }
 }
 
@@ -263,7 +290,10 @@ count_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
   if (lane == 0) counts[p] = n;
 }
 
-// A ring slot: one of the last 64 matches (ring index b, -1 for none yet).
+// The scoring of one chain candidate that band_build's bound charges
+// (chip_smoke.py compiles `candidate` into its probe; the chain pass
+// computes the same keys in link_key). A ring slot: one of the last 64
+// matches (ring index b, -1 for none yet).
 struct Slot {
   int i, j, sc, b;
 };
@@ -296,8 +326,300 @@ __device__ __forceinline__ long long warp_max(long long key) {
   return (static_cast<long long>(hi) << 32) | lo;
 }
 
+// The chain pass's ring, as a lane sees it: one of the last 64 matches
+// and its chain score (i = INT32_MAX: none yet). The matches come in
+// chunks of 32, match c + l of chunk c in lane l; lane l keeps its match
+// of the chunk before (`prev`) and, in `cur`, its match of this chunk
+// once that is scored, until then its match of the chunk two back.
+struct Link {
+  int i, j, sc;
+};
+
+// Candidate key of link s for match (i, j) at nearness `near` (64 -
+// distance: 0 for the match 64 back, 63 for the one before): what
+// `candidate` (the scoring of one candidate that band_build's bound
+// charges) computes, score x 64 + nearness for a link before (i, j) in
+// both coordinates that beats the start score, else 0; here with a
+// three-way minimum for the overlap and the gap penalty as g + 5 min(g,
+// 1).
 template <typename Key>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ Key link_key(const Link& s, int near, int i,
+                                        int j) {
+  const int di = i - s.i, dj = j - s.j;  // s.i = INT32_MAX: di < 0
+  const int step = __vimin3_s32(di, dj, kK);  // kK - overlap, if > 0
+  const int g = abs(di - dj);
+  const int pen = g * -kGapExtend - kGapOpen * min(g, 1);
+  const int sc = s.sc + step * kMatch - pen;
+  return step > 0 && sc > kK * kMatch
+             ? static_cast<Key>(sc) * kMaxPred + near
+             : 0;
+}
+
+// A problem's band rows as the chain pass builds them: read row r's
+// bounds at lo[r], hi[r], (INT32_MAX, INT32_MIN) before the fill; widened
+// by atomics, as the lanes of a warp widen rows that may overlap.
+struct Rows {
+  int32_t* lo;
+  int32_t* hi;
+  // row r: lo = min(lo, a), hi = max(hi, b)
+  __device__ __forceinline__ void widen(int r, int a, int b) const {
+    atomicMin(lo + r, a);
+    atomicMax(hi + r, b);
+  }
+  // rows r0 + from, r0 + from + step, ... below r1 of diagonal d
+  // widened by w, clamped to [0, len_y)
+  __device__ __forceinline__ void diag(int r0, int r1, int d, int len_y,
+                                       int from, int step) const {
+    for (int r = r0 + from; r < r1; r += step) {
+      widen(r, max(0, r + d - kW), min(len_y, r + d + kW + 1));
+    }
+  }
+};
+
+// Shared-memory words between one warp's rows and the next's: lx rounded
+// up to 4 more than a multiple of 32, so the block's coalesced write (the
+// 8 warps' row r in 8 lanes, 4 rows per warp instruction) meets 32 banks.
+__host__ __device__ __forceinline__ int shared_stride(int lx) {
+  return lx + ((4 - lx) & 31);
+}
+
+// A key's score: keys >= 0, 0 for none, which scores the start.
+__device__ __forceinline__ int key_score(int key) {
+  return max(static_cast<int>(static_cast<unsigned>(key) / kMaxPred),
+             kK * kMatch);
+}
+__device__ __forceinline__ int key_score(long long key) {
+  return max(static_cast<int>(static_cast<unsigned long long>(key) /
+                              kMaxPred),
+             kK * kMatch);
+}
+
+// A key's predecessor distance (1..64; 0 for none).
+template <typename Key>
+__device__ __forceinline__ int key_distance(Key key) {
+  return key ? kMaxPred - static_cast<int>(key & (kMaxPred - 1)) : 0;
+}
+
+// A warp's last kRing chunks of matches in shared memory: chunk k's
+// match c + l's (i, j) and predecessor distance (0: none) at slot k %
+// kRing, lane l. Older chunks go to the match scratch in device memory.
+struct Ring {
+  int2 ij[kRing][32];
+  int dist[kRing][32];
+};
+
+// A problem's matches as the chain DP leaves them: chunk k's in the ring
+// while k is one of the last kRing, else match a's (i, j) and
+// predecessor distance at i[a], j[a], prev[a]; the best chain ends at
+// match best.
+struct Chain {
+  const int32_t* i;
+  const int32_t* j;
+  const int32_t* prev;
+  long long count, best;
+};
+
+// One warp's chain DP of problem p (see the file's Design), which has
+// matches: keeps every match (the ring, then the match scratch) and
+// returns where the best chain ends.
+template <typename Key>
+__device__ __forceinline__ Chain chain_dp(
+    const Problem& q, const long long* __restrict__ ends, size_t p,
+    size_t p0, int32_t* match_i, int32_t* match_j, int32_t* match_prev,
+    Ring& ring) {
+  const int lane = threadIdx.x & 31;
+  const long long start = p ? ends[p - 1] : 0;
+  const long long off = start - (p0 ? ends[p0 - 1] : 0);  // in the range
+  int32_t* mi = match_i + off;
+  int32_t* mj = match_j + off;
+  int32_t* mp = match_prev + off;
+  Link cur{INT32_MAX, 0, 0}, prev{INT32_MAX, 0, 0};
+  int ci = 0, cj = 0;  // this lane's match of the chunk
+  Key ck = 0;          // and its key, once scored
+  int filled = 0;      // matches of the chunk gathered so far
+  long long base = 0;  // the chunk's first match
+  int best_sc = -1;
+  long long best_a = 0;
+  // the chunk's first n matches, one warp step each, broadcast from the
+  // ring: two candidates per lane, one reduction; lane t keeps match t's
+  // link and key. Then the chunk's best match. The ring's slot first hands
+  // the chunk kRing back to the match scratch, and takes the predecessor
+  // distances at the end.
+  auto dp_chunk = [&](int n) {
+    // -- a chunk's DP starts here --
+    const int slot = static_cast<int>(base / 32) & (kRing - 1);
+    if (base >= 32 * kRing) {
+      const long long old = base - 32 * kRing + lane;
+      mi[old] = ring.ij[slot][lane].x;
+      mj[old] = ring.ij[slot][lane].y;
+      mp[old] = ring.dist[slot][lane];
+    }
+    ring.ij[slot][lane] = make_int2(ci, cj);
+    __syncwarp();
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const int2 m = ring.ij[slot][t];
+      const int near = (lane - t) & (kMaxPred - 1);
+      const Key key = warp_max(max(link_key<Key>(cur, near, m.x, m.y),
+                                   link_key<Key>(prev, near ^ 32, m.x, m.y)));
+      const int sc = key_score(key);
+      const bool mine = lane == t;
+      cur.i = mine ? ci : cur.i;
+      cur.j = mine ? cj : cur.j;
+      cur.sc = mine ? sc : cur.sc;
+      ck = mine ? key : ck;
+    }
+    // the chunk's first match of its greatest score, if above the best
+    const int top = __reduce_max_sync(kFull, lane < n ? cur.sc : -1);
+    if (top > best_sc) {
+      best_sc = top;
+      best_a = base + __ffs(__ballot_sync(kFull, lane < n && cur.sc == top))
+               - 1;
+    }
+    ring.dist[slot][lane] = key_distance(ck);
+    __syncwarp();
+  };
+  const int n_i = q.len_x - kK + 1, n_j = q.len_y - kK + 1;
+  for (int i0 = 0; i0 < n_i; i0 += 32) {
+    // the runs of 32 read positions, then their matches in order, laid
+    // into the chunk's lanes
+    int run_lo, run_hi;
+    lookup(q, i0 + lane, n_i, n_j, run_lo, run_hi);
+    long long incl = run_hi - run_lo;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long v = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const long long excl = incl - (run_hi - run_lo);
+    const long long total = __shfl_sync(kFull, incl, 31);
+    for (long long m0 = 0; m0 < total;) {
+      const int take = static_cast<int>(
+          total - m0 < 32 - filled ? total - m0 : 32 - filled);
+      const long long m = m0 + lane - filled;  // this lane's match
+      int src = 0;  // the last position whose run starts at or before m
+#pragma unroll
+      for (int b = 16; b > 0; b >>= 1) {
+        if (__shfl_sync(kFull, excl, src + b) <= m) src += b;
+      }
+      const int e = __shfl_sync(kFull, run_lo, src) +
+                    static_cast<int>(m - __shfl_sync(kFull, excl, src));
+      if (lane >= filled && lane < filled + take) {
+        ci = i0 + src;
+        cj = __ldg(q.pos + e);
+      }
+      filled += take;
+      m0 += take;
+      if (filled == 32) {
+        dp_chunk(32);
+        const Link two_back = prev;
+        prev = cur;
+        cur = two_back;
+        base += 32;
+        filled = 0;
+      }
+    }
+  }
+  if (filled) dp_chunk(filled);
+  return Chain{mi, mj, mp, base + filled, best_a};
+}
+
+// One warp's band fill of a chained problem: the traceback, 32 matches at
+// a time from the best one down, from the ring or the match scratch. The
+// chunk's anchors are the best match's (or the chunk's last anchor's)
+// ancestors in the chunk, found for every lane at once by doubling: each
+// lane's mask of its ancestors, its 2^k-th ancestor. Each anchor lane then
+// widens the rows of its diagonal and of its box up to the next anchor,
+// less what that anchor's own diagonal covers; then the lanes widen the
+// rows of the two corner diagonals.
+__device__ __forceinline__ void chain_fill(const Chain& ch, const Ring& ring,
+                                           int len_x, int len_y,
+                                           const Rows& rows) {
+  const int lane = threadIdx.x & 31;
+  for (int r = lane; r < len_x; r += 32) {
+    rows.lo[r] = INT32_MAX;
+    rows.hi[r] = INT32_MIN;
+  }
+  __syncwarp();
+  const long long in_ring = (ch.count + 31) / 32 - kRing;  // first chunk
+  long long c = ch.best;
+  bool has_next = false;
+  int next_i = 0, next_j = 0, back_i = 0, back_j = 0;
+  while (c >= 0) {
+    const long long chunk = c & ~31ll;
+    int ai = 0, aj = 0, ad = 0;
+    if (chunk + lane < ch.count) {
+      if (chunk / 32 >= in_ring) {
+        const int slot = static_cast<int>(chunk / 32) & (kRing - 1);
+        ai = ring.ij[slot][lane].x;
+        aj = ring.ij[slot][lane].y;
+        ad = ring.dist[slot][lane];
+      } else {
+        ai = ch.i[chunk + lane];
+        aj = ch.j[chunk + lane];
+        ad = ch.prev[chunk + lane];
+      }
+    }
+    const int t = static_cast<int>(c - chunk);
+    if (c == ch.best) {
+      back_i = __shfl_sync(kFull, ai, t);
+      back_j = __shfl_sync(kFull, aj, t);
+    }
+    int up = ad > 0 && ad <= lane ? lane - ad : lane;  // itself: none
+    unsigned anc = 1u << lane;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      anc |= __shfl_sync(kFull, anc, up);
+      up = __shfl_sync(kFull, up, up);
+    }
+    const unsigned on = __shfl_sync(kFull, anc, t);  // the chunk's anchors
+    const int first = __ffs(on) - 1;
+    const int first_d = __shfl_sync(kFull, ad, first);
+    c = first_d ? chunk + first - first_d : -1;
+    const unsigned above = lane < 31 ? on >> (lane + 1) << (lane + 1) : 0u;
+    const int after = above ? __ffs(above) - 1 : lane;
+    const int an_i = __shfl_sync(kFull, ai, after);
+    const int an_j = __shfl_sync(kFull, aj, after);
+    if ((on >> lane) & 1) {
+      const bool succ = above || has_next;
+      const int si = above ? an_i : next_i, sj = above ? an_j : next_j;
+      const int d = aj - ai;
+      int r1 = min(ai + kK + kW, len_x);
+      bool box = succ;
+      if (succ && sj - si == d) {  // the next anchor's diagonal covers
+        r1 = min(r1, si - kW);     // the rest of this one's
+        box = si - ai > kW - kK + 1;  // and, this near, the box
+      }
+      rows.diag(max(ai - kW, 0), r1, d, len_y, 0, 1);
+      if (box) {
+        const int lo = max(0, aj), hi = min(len_y, sj + kK);
+        for (int r = max(0, ai); r < min(len_x, si + kK); ++r) {
+          rows.widen(r, lo, hi);
+        }
+      }
+    }
+    next_i = __shfl_sync(kFull, ai, first);
+    next_j = __shfl_sync(kFull, aj, first);
+    has_next = true;
+  }
+  __syncwarp();
+  // corner extensions along the chain's end diagonals
+  const int back = min(next_i, next_j);
+  rows.diag(max(next_i - back - kW, 0), min(next_i + kW, len_x),
+            next_j - next_i, len_y, lane, 32);
+  const int i1 = back_i + kK, j1 = back_j + kK;
+  const int tail = min(len_x - i1, len_y - j1);
+  rows.diag(max(i1 - kW, 0), min(i1 + tail + kW, len_x), j1 - i1, len_y,
+            lane, 32);
+  __syncwarp();
+}
+
+// The chain pass: one warp per problem of [p0, p1), kChainWarps problems
+// per block. kSharedRows: the warps' band rows in shared memory, written
+// out by the block at the end, 8 problems' row r in 8 consecutive words;
+// else in the work buffers [problem][row], written out by each warp.
+template <typename Key, bool kSharedRows>
+__global__ void __launch_bounds__(kChainThreads)
 chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              const int32_t* __restrict__ idx_ref,
              const int32_t* __restrict__ idx_alt, int per_read,
@@ -308,126 +630,70 @@ chain_kernel(const uint8_t* __restrict__ reads, size_t n_prob, int lx, int ly,
              int32_t* match_i, int32_t* match_j, int32_t* match_prev,
              int32_t* work_lo, int32_t* work_hi, int32_t* __restrict__ jlo,
              int32_t* __restrict__ jhi) {
-  const size_t p = p0 + static_cast<size_t>(blockIdx.x) * kWarps +
-                   (threadIdx.x >> 5);
-  if (p >= p1) return;
-  const int lane = threadIdx.x & 31;
-  const Problem q = load_problem(reads, lx, ly, idx_ref, idx_alt, per_read,
-                                 keys, pos, hap_len, p);
-  const int len_x = q.len_x, len_y = q.len_y;
-  const long long start = p ? ends[p - 1] : 0;
-  const long long count = ends[p] - start;
-  const long long off = start - (p0 ? ends[p0 - 1] : 0);  // in the range
-  const bool short_pair = len_x > 0 && len_y > 0 && (len_x < kK || len_y < kK);
-  if (short_pair || count == 0) {  // full band, or no band at all
-    for (int r = lane; r < lx; r += 32) {
-      const bool full = short_pair && r < len_x;
-      jlo[r * n_prob + p] = 0;
-      jhi[r * n_prob + p] = full ? len_y : 0;
-    }
-    return;
+  extern __shared__ int32_t shared_rows[];
+  __shared__ Ring rings[kChainWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t first = p0 + static_cast<size_t>(blockIdx.x) * kChainWarps;
+  const size_t p = first + warp;
+  const int stride = shared_stride(lx);
+  Rows rows;
+  if (kSharedRows) {
+    rows.lo = shared_rows + warp * stride;
+    rows.hi = rows.lo + kChainWarps * stride;
+  } else {
+    rows.lo = work_lo + (p - p0) * lx;
+    rows.hi = work_hi + (p - p0) * lx;
   }
-  int32_t* mi = match_i + off;
-  int32_t* mj = match_j + off;
-  int32_t* mp = match_prev + off;
-  // chain DP, match by match in (i, j) order; a: the match's index in the
-  // problem, ar: its ring index
-  Slot s0{0, 0, 0, -1}, s1{0, 0, 0, -1};  // matches ar - 1 - lane (mod 64)
-  int best_sc = -1, ar = 0;
-  long long best_a = 0, a = 0;
-  const int n_i = len_x - kK + 1, n_j = len_y - kK + 1;
-  for (int i0 = 0; i0 < n_i; i0 += 32) {
-    int run_lo, run_hi;
-    lookup(q, i0 + lane, n_i, n_j, run_lo, run_hi);
-    const int nt = min(32, n_i - i0);
-    for (int t = 0; t < nt; ++t) {
-      const int i = i0 + t;
-      const int e1 = __shfl_sync(kFull, run_hi, t);
-      for (int e = __shfl_sync(kFull, run_lo, t); e < e1; ++e) {
-        const int j = __ldg(q.pos + e);
-        if (ar == kRebase + kMaxPred) {  // every slot holds b >= kRebase
-          ar -= kRebase;
-          s0.b -= kRebase;
-          s1.b -= kRebase;
-        }
-        Key key = max(candidate<Key>(s0, ar, i, j),
-                      candidate<Key>(s1, ar, i, j));
-        key = warp_max(key);
-        const int sc = key ? static_cast<int>(key / kMaxPred) : kK * kMatch;
-        if (lane == 0) {
-          mi[a] = i;
-          mj[a] = j;
-          mp[a] = key ? kMaxPred - static_cast<int>(key % kMaxPred) : 0;
-        }
-        if (sc > best_sc) {
-          best_sc = sc;
-          best_a = a;
-        }
-        if (lane == (ar & 31)) {
-          const Slot s{i, j, sc, ar};
-          if (ar & 32) {
-            s1 = s;
-          } else {
-            s0 = s;
-          }
-        }
-        ++a;
-        ++ar;
+  Problem q{};
+  Chain ch{};
+  bool chained = false, short_pair = false;
+  if (p < p1) {
+    q = load_problem(reads, lx, ly, idx_ref, idx_alt, per_read, keys, pos,
+                     hap_len, p);
+    short_pair = q.len_x > 0 && q.len_y > 0 && (q.len_x < kK || q.len_y < kK);
+    chained = !short_pair && ends[p] != (p ? ends[p - 1] : 0);
+    if (chained) {
+      ch = chain_dp<Key>(q, ends, p, p0, match_i, match_j, match_prev,
+                         rings[warp]);
+    }
+  }
+  // -- the chain DP ends here --
+  if (chained) chain_fill(ch, rings[warp], q.len_x, q.len_y, rows);
+  // a row's bounds: its band, the full row of a short pair, else [0, 0)
+  auto bounds = [&](int r, int& lo, int& hi) {
+    lo = hi = 0;
+    if (r < q.len_x) {
+      if (chained && rows.lo[r] < rows.hi[r]) {
+        lo = rows.lo[r];
+        hi = rows.hi[r];
+      } else if (short_pair) {
+        hi = q.len_y;
       }
     }
-  }
-  __syncwarp();
-  // band fill over this problem's rows of the work buffer
-  int32_t* wlo = work_lo + (p - p0) * lx;
-  int32_t* whi = work_hi + (p - p0) * lx;
-  for (int r = lane; r < len_x; r += 32) {
-    wlo[r] = INT32_MAX;
-    whi[r] = INT32_MIN;
-  }
-  __syncwarp();
-  auto add_diag = [&](int i0, int j0, int len) {
-    const int t0 = max(-kW, -i0), t1 = min(len + kW, len_x - i0);
-    for (int t = t0 + lane; t < t1; t += 32) {
-      const int r = i0 + t;
-      wlo[r] = min(wlo[r], max(0, j0 + t - kW));
-      whi[r] = max(whi[r], min(len_y, j0 + t + kW + 1));
-    }
-    __syncwarp();
   };
-  auto add_box = [&](int i0, int i1, int j0, int j1) {
-    i1 = min(len_x, i1);
-    j0 = max(0, j0);
-    j1 = min(len_y, j1);
-    for (int r = max(0, i0) + lane; r < i1; r += 32) {
-      wlo[r] = min(wlo[r], j0);
-      whi[r] = max(whi[r], j1);
+  if (kSharedRows) {
+    for (int r = lane; r < lx; r += 32) {
+      int lo, hi;
+      bounds(r, lo, hi);
+      rows.lo[r] = lo;
+      rows.hi[r] = hi;
     }
-    __syncwarp();
-  };
-  const int back_i = mi[best_a], back_j = mj[best_a];
-  int front_i = back_i, front_j = back_j;
-  for (long long c = best_a; c != -1;) {
-    const int ci = mi[c], cj = mj[c], d = mp[c];
-    const long long b = d ? c - d : -1;
-    add_diag(ci, cj, kK);
-    if (b != -1) add_box(mi[b], ci + kK, mj[b], cj + kK);
-    front_i = ci;
-    front_j = cj;
-    c = b;
-  }
-  // corner extensions along the chain's end diagonals
-  const int back = min(front_i, front_j);
-  add_diag(front_i - back, front_j - back, back);
-  const int i1 = back_i + kK, j1 = back_j + kK;
-  add_diag(i1, j1, min(len_x - i1, len_y - j1));
-  for (int r = lane; r < lx; r += 32) {
-    int lo = 0, hi = 0;
-    if (r < len_x && wlo[r] < whi[r]) {
-      lo = wlo[r];
-      hi = whi[r];
+    __syncthreads();
+    for (int k = threadIdx.x; k < lx * kChainWarps; k += kChainThreads) {
+      const int r = k / kChainWarps, w = k % kChainWarps;
+      if (first + w < p1) {
+        jlo[r * n_prob + first + w] = shared_rows[w * stride + r];
+        jhi[r * n_prob + first + w] =
+            shared_rows[(kChainWarps + w) * stride + r];
+      }
     }
-    jlo[r * n_prob + p] = lo;
-    jhi[r * n_prob + p] = hi;
+  } else if (p < p1) {
+    for (int r = lane; r < lx; r += 32) {
+      int lo, hi;
+      bounds(r, lo, hi);
+      jlo[r * n_prob + p] = lo;
+      jhi[r * n_prob + p] = hi;
+    }
   }
 }
 
@@ -489,10 +755,11 @@ int band_build_count(const void* reads, int n_reads, int lx, int ly,
 // Problems and per_read as band_build_count; ends: int64 [per_read *
 // n_reads], the inclusive running sum of counts; match_i, match_j,
 // match_prev: int32 [ends[p1 - 1] - ends[p0 - 1]] each (ends[-1] = 0), the
-// range's matches; work_lo, work_hi: int32 [p1 - p0, lx]; jlo, jhi: int32
-// [lx, per_read * n_reads], one column per problem. wide_keys: 64-bit
-// chain keys (needed from lx >= 2^25). Returns cudaGetLastError() (0 =
-// ok).
+// range's matches; work_lo, work_hi: int32 [p1 - p0, lx], or both null:
+// the band rows kept in shared memory (64 bytes per read row, which must
+// fit a block's shared memory); jlo, jhi: int32 [lx, per_read * n_reads],
+// one column per problem. wide_keys: 64-bit chain keys (needed from lx >=
+// 2^25). Returns cudaGetLastError() (0 = ok), or cudaErrorInvalidValue.
 int band_build_chain(const void* reads, int n_reads, int lx, int ly,
                      const void* idx_ref, const void* idx_alt, int per_read,
                      const void* keys, const void* pos, const void* hap_len,
@@ -505,9 +772,26 @@ int band_build_chain(const void* reads, int n_reads, int lx, int ly,
   if (p0 < 0 || p1 > static_cast<long long>(n_prob)) {
     return cudaErrorInvalidValue;
   }
+  const bool shared = work_lo == nullptr;
+  if (shared != (work_hi == nullptr)) return cudaErrorInvalidValue;
+  const size_t smem =
+      shared ? 2 * kChainWarps * sizeof(int32_t) * shared_stride(lx) : 0;
+  int device = 0, limit = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  if (smem + sizeof(Ring) * kChainWarps > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
   if (p0 >= p1) return 0;
   auto launch = [&](auto kernel) {
-    kernel<<<warp_blocks(p1 - p0), kThreads, 0,
+    if (smem + sizeof(Ring) * kChainWarps > 48 * 1024) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    }
+    const unsigned blocks = static_cast<unsigned>(
+        (p1 - p0 + kChainWarps - 1) / kChainWarps);
+    kernel<<<blocks, kChainThreads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(reads), n_prob, lx, ly,
         static_cast<const int32_t*>(idx_ref),
@@ -522,9 +806,10 @@ int band_build_chain(const void* reads, int n_reads, int lx, int ly,
         static_cast<int32_t*>(jhi));
   };
   if (wide_keys) {
-    launch(chain_kernel<long long>);
+    launch(shared ? chain_kernel<long long, true>
+                  : chain_kernel<long long, false>);
   } else {
-    launch(chain_kernel<int>);
+    launch(shared ? chain_kernel<int, true> : chain_kernel<int, false>);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,6 +69,10 @@ BANDED_STRIP = 8
 # read width from which the band builder's chain keys (score x 64 +
 # nearness, a score at most the read's length) need 64 bits
 BAND_WIDE_KEYS_LX = 1 << 25
+# widest read whose band rows the band builder's chain pass keeps in
+# shared memory (8 bytes per read row and problem, 8 problems per block);
+# wider reads keep them in a work buffer in device memory (band_route)
+BAND_SHARED_LX = 1024
 
 # kernel launches (sw_pair, sw_banded: one per read range; band_build: one
 # per chain-pass range; band_index: one per index) since the last reset,
@@ -115,23 +119,28 @@ def _banded_kernel() -> ctypes.CDLL:
     return _banded_lib
 
 
+def bind_band_library(path: str) -> ctypes.CDLL:
+    """A build of csrc/band_build.cu at `path`, its C entries typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.band_index_build.restype = ci
+    lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.band_build_count.restype = ci
+    lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp,
+                                     vp, vp]
+    lib.band_build_chain.restype = ci
+    lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp,
+                                     vp, cl, cl, vp, vp, vp, vp, vp, vp, vp,
+                                     ci, vp]
+    lib.band_build_error_string.restype = ctypes.c_char_p
+    lib.band_build_error_string.argtypes = [ci]
+    return lib
+
+
 def _band_kernel() -> ctypes.CDLL:
     global _band_lib
     if _band_lib is None:
-        lib = ctypes.CDLL(band_build_library())
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.band_index_build.restype = ci
-        lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.band_build_count.restype = ci
-        lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
-                                         vp, vp, vp]
-        lib.band_build_chain.restype = ci
-        lib.band_build_chain.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp,
-                                         vp, vp, cl, cl, vp, vp, vp, vp, vp,
-                                         vp, vp, ci, vp]
-        lib.band_build_error_string.restype = ctypes.c_char_p
-        lib.band_build_error_string.argtypes = [ci]
-        _band_lib = lib
+        _band_lib = bind_band_library(band_build_library())
     return _band_lib
 
 
@@ -459,15 +468,28 @@ def banded_batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return banded_scores(x, y, *band_bounds(x, y, ident))
 
 
-def band_ranges(ends: np.ndarray, lx: int,
-                budget: int) -> List[Tuple[int, int]]:
+def band_route(lx: int) -> str:
+    """The chain pass's width route for reads of width lx: "shared" keeps
+    each problem's band rows in shared memory while lx <= BAND_SHARED_LX,
+    "global" in a work buffer in device memory (8 bytes per read row)."""
+    return "shared" if lx <= BAND_SHARED_LX else "global"
+
+
+def band_work_bytes(lx: int, route: str) -> int:
+    """Device bytes of one problem's band rows on the chain pass's width
+    `route`: a work buffer row pair on "global", none on "shared"."""
+    return 8 * lx if route == "global" else 0
+
+
+def band_ranges(ends: np.ndarray, lx: int, budget: int,
+                route: str) -> List[Tuple[int, int]]:
     """Problem ranges [p0, p1) of the band builder's chain pass, in order
     and covering every problem, each taking at most `budget` bytes of
-    scratch (12 per match, 8 per read row of a problem) unless one problem
-    alone takes more. ends: int64 [P], the running sum of the problems'
-    match counts."""
-    need = 12 * np.asarray(ends, np.int64) + 8 * lx * np.arange(
-        1, len(ends) + 1, dtype=np.int64)
+    scratch (12 per match and, on the "global" route, 8 per read row of a
+    problem) unless one problem alone takes more. ends: int64 [P], the
+    running sum of the problems' match counts."""
+    need = 12 * np.asarray(ends, np.int64) + band_work_bytes(
+        lx, route) * np.arange(1, len(ends) + 1, dtype=np.int64)
     out, p0 = [], 0
     while p0 < len(need):
         base = need[p0 - 1] if p0 else 0
@@ -513,18 +535,11 @@ def band_index(hap_mat: torch.Tensor) -> BandIndex:
     return _launch_index(hap_mat)
 
 
-def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
-                 idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
-                 index: BandIndex) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Validate, allocate and launch the band builder on the current
-    stream; plain rows (per_read 1) when idx_alt is None. Its match
-    scratch is sized exactly: the count kernel's counts
-    are summed on the device and the total is read (the host waits for the
-    count pass there). A chunk within BAND_SCRATCH_BYTES (less the index)
-    runs one chain pass; a larger one reads every problem's sum and runs
-    the pass over the problem ranges of band_ranges, each in scratch of its
-    own size."""
-    global BAND_LAUNCHES, BAND_ROW_LAUNCHES
+def band_problems(reads: torch.Tensor, hap_mat: torch.Tensor,
+                  idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
+                  index: BandIndex) -> tuple:
+    """Validates a band build's inputs; returns (the C entries' problem
+    arguments, per_read): plain rows (per_read 1) when idx_alt is None."""
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
@@ -538,44 +553,77 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
             or index.hap_len.shape != (H,)):
         raise ValueError(f"the index is not one of a [{H}, {ly}] haplotype "
                          "matrix")
+    return (reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
+            None if idx_alt is None else idx_alt.data_ptr(), per_read,
+            index.keys.data_ptr(), index.pos.data_ptr(),
+            index.hap_len.data_ptr()), per_read
+
+
+def band_chain(lib: ctypes.CDLL, problems: tuple, P: int, H: int,
+               ends: torch.Tensor, total: int, jlo: torch.Tensor,
+               jhi: torch.Tensor, route: str) -> int:
+    """The chain pass of `lib` over problems [0, P), given the count
+    pass's running sums `ends` and their total: one launch when the
+    match scratch (and, on the "global" route, the work rows) fits
+    BAND_SCRATCH_BYTES less the index, else one per problem range of
+    band_ranges, each in scratch of its own size. Each launch adds one to
+    BAND_LAUNCHES (pair mode) or BAND_ROW_LAUNCHES (plain rows). Returns
+    the first error, or 0."""
+    global BAND_LAUNCHES, BAND_ROW_LAUNCHES
+    lx, ly, per_read = problems[2], problems[3], problems[6]
+    dev = jlo.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    budget = max(0, BAND_SCRATCH_BYTES - 12 * H * ly)
+    ranges = [(0, P, total)]
+    if 12 * total + band_work_bytes(lx, route) * P > budget:
+        e = ends.cpu().numpy()  # every problem's sum, only when needed
+        ranges = [(p0, p1, int(e[p1 - 1] - (e[p0 - 1] if p0 else 0)))
+                  for p0, p1 in band_ranges(e, lx, budget, route)]
+    for p0, p1, n in ranges:
+        matches = torch.empty((3, max(n, 1)), dtype=torch.int32, device=dev)
+        work = (torch.empty((2, p1 - p0, lx), dtype=torch.int32, device=dev)
+                if route == "global" else None)
+        err = lib.band_build_chain(
+            *problems, ends.data_ptr(), p0, p1, matches[0].data_ptr(),
+            matches[1].data_ptr(), matches[2].data_ptr(),
+            None if work is None else work[0].data_ptr(),
+            None if work is None else work[1].data_ptr(), jlo.data_ptr(),
+            jhi.data_ptr(), int(lx >= BAND_WIDE_KEYS_LX), stream)
+        if err != 0:
+            return err
+        if per_read == 2:
+            BAND_LAUNCHES += 1
+        else:
+            BAND_ROW_LAUNCHES += 1
+    return 0
+
+
+def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
+                 idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
+                 index: BandIndex) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validate, allocate and launch the band builder on the current
+    stream; plain rows (per_read 1) when idx_alt is None. Its match
+    scratch is sized exactly: the count kernel's counts are summed on the
+    device and the total is read (the host waits for the count pass
+    there); then the chain pass (band_chain) on the width route of
+    band_route."""
+    problems, per_read = band_problems(reads, hap_mat, idx_ref, idx_alt,
+                                       index)
+    R, lx = reads.shape
     P = per_read * R
+    dev = reads.device
     jlo = torch.empty((lx, P), dtype=torch.int32, device=dev)
     jhi = torch.empty((lx, P), dtype=torch.int32, device=dev)
     if P == 0 or lx == 0:
         return jlo, jhi
     lib = _band_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     counts = torch.empty(P, dtype=torch.int64, device=dev)
-    problems = (reads.data_ptr(), R, lx, ly, idx_ref.data_ptr(),
-                None if idx_alt is None else idx_alt.data_ptr(), per_read,
-                index.keys.data_ptr(), index.pos.data_ptr(),
-                index.hap_len.data_ptr())
-    err = lib.band_build_count(*problems, counts.data_ptr(), stream)
+    err = lib.band_build_count(*problems, counts.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
     if err == 0:
         ends = torch.cumsum(counts, 0)
-        total = int(ends[-1])
-        budget = max(0, BAND_SCRATCH_BYTES - 12 * H * ly)
-        ranges = [(0, P, total)]
-        if 12 * total + 8 * lx * P > budget:
-            e = ends.cpu().numpy()  # every problem's sum, only when needed
-            ranges = [(p0, p1, int(e[p1 - 1] - (e[p0 - 1] if p0 else 0)))
-                      for p0, p1 in band_ranges(e, lx, budget)]
-        for p0, p1, n in ranges:
-            matches = torch.empty((3, max(n, 1)), dtype=torch.int32,
-                                  device=dev)
-            work = torch.empty((2, p1 - p0, lx), dtype=torch.int32,
-                               device=dev)
-            err = lib.band_build_chain(
-                *problems, ends.data_ptr(), p0, p1, matches[0].data_ptr(),
-                matches[1].data_ptr(), matches[2].data_ptr(),
-                work[0].data_ptr(), work[1].data_ptr(), jlo.data_ptr(),
-                jhi.data_ptr(), int(lx >= BAND_WIDE_KEYS_LX), stream)
-            if err != 0:
-                break
-            if per_read == 2:
-                BAND_LAUNCHES += 1
-            else:
-                BAND_ROW_LAUNCHES += 1
+        err = band_chain(lib, problems, P, hap_mat.shape[0], ends,
+                         int(ends[-1]), jlo, jhi, band_route(lx))
     if err != 0:
         raise RuntimeError("band_build kernel launch failed: "
                            + lib.band_build_error_string(err).decode())
