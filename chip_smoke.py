@@ -11,11 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (nvcc), libgenomio, libcramio (its link line printed) and the host
      band reference band_bounds.cpp (g++) from the checkout's sources, two
      probes (nvcc, SASS only: the least DP cell update, and band_build's
-     candidate scoring), a DPX rate probe and three probes of band_build's
-     split (nvcc: copies of band_build.cu that return where its chain DP
-     ends, the lookups probe also before each chunk's DP steps; and the
-     chain DP under other problem-to-lane mappings), all in parallel, with
-     the compiler's register report;
+     candidate scoring in two forms), a DPX rate probe and three probes
+     of band_build's split (nvcc: copies of band_build.cu that return
+     where its chain DP ends, the lookups probe also before each chunk's
+     DP steps; and the chain DP under other problem-to-lane mappings),
+     all in parallel, with the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, exact
      equality. sw_pair (int32 scores and int8 codes) on each of its three
      routes: dense and 2-bit reads over the shape families of the full
@@ -39,10 +39,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      work buffer by width), and against the host reference on one
      homopolymer locus at ly=4032 whose matches need several chain-pass
      ranges and on the 65,602-base reads. sw_banded: scores and codes on
-     those bounds against its plain version. On every family of the
-     banded path, both banded kernels' plain-row mode (read p against
+     those bounds against its plain version, on each of its routes that
+     holds the family's width (packed, word32, word64). On every family of
+     the banded path, both banded kernels' plain-row mode (read p against
      haplotype row p, the Python host path's): the bounds against the plain
-     version and the host reference, the scores against the plain version.
+     version and the host reference, the scores on every route against the
+     plain version. Two banded families of their own: indel haplotype
+     pairs whose ref and alt bands part by more than a band's width, and
+     reads at sw_banded's packed limit, ly = 32,767, scoring 32,767, in
+     both per_read modes (the bounds against the host reference).
      A 100,000-base haplotype pair (a deletion alt) against 512 reads
      (cut for time), under 16 MiB scratch budgets, small enough that
      band_build, sw_banded and sw_pair each run several ranges, against
@@ -54,9 +59,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      SASS of a probe that includes neither kernel (cuobjdump); beside it
      the SASS of each hot loop and the DPX add-max rate of the card. For
      sw_pair both its packed and its 32-bit scalar route, in turns; for
-     sw_banded the instructions per cell of its
-     core and of its masked zones, the cells it visits and the lane slots
-     its divergence leaves idle; for band_build (given its index) the host
+     sw_banded the same two routes in turns in both per_read modes (and
+     plain rows in an order that pairs unrelated problems), and per route
+     the instructions per problem cell of its core and of its masked
+     zones, the cells it visits, the lane slots its divergence leaves
+     idle, its registers, blocks per SM and waves; for band_build (given
+     its index) the host
      reference's time per pair (the route it replaced) and its time split
      (CUDA events between the count pass, the device sum, the host read of
      the total and the chain pass; the chain DP and lookups probes' chain
@@ -125,12 +133,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 
-`python3 chip_smoke.py --band [--baseline DIR]` runs the band builder
+`python3 chip_smoke.py --band [--baseline DIR]` runs the banded kernels
 alone: phases 1 and 2, the SASS counts, phase 3's banded families and
-phase 4's banded timing; with
---baseline, the band_build.cu of the checkout at DIR (e.g. the parent
-commit's, unpacked by `git archive` under build/) built beside this one
-and timed against it in turns at the main shape, bounds held equal.
+phase 4's banded timing, with sw_banded's split (banded_split: its
+packed route against copies without scratch traffic and with one
+haplotype pair for all threads, and with other strip heights and blocks
+per SM); with --baseline, the band_build.cu and
+sw_banded.cu of the checkout at DIR (e.g. the parent commit's, unpacked
+by `git archive` under build/) built beside this one and timed against
+them in turns at the main shape in both per_read modes, bounds and
+scores held equal.
 """
 
 import collections
@@ -156,30 +168,38 @@ HBM_BYTES_PER_S = 3.35e12
 ISSUE_PER_SM_CLK = 4 * 32
 # the instantiations the paths launch: full, 2-bit reads and int8 call
 # codes on the packed route (and, timed beside it, on the 32-bit scalar
-# route); banded, int8 call codes (32-bit scratch words; 32-bit chain keys,
-# band rows in shared memory)
+# route); banded, int8 call codes on the packed route (and beside it on
+# the 32-bit scalar route); the chain pass with 32-bit chain keys, band
+# rows in shared memory
 MAIN_KERNEL_SYMBOL = "sw_pair16x2_kernelILb1ELb1E"
 SCALAR_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
-BANDED_KERNEL_SYMBOL = "sw_banded_kernelILb1ELb0EE"
+BANDED_KERNEL_SYMBOL = "sw_banded16x2_kernelILb1EE"
+BANDED_SCALAR_SYMBOL = "sw_banded_kernelILb1ELb0EE"
 CHAIN_KERNEL_SYMBOL = "chain_kernelIiLb1EE"
 # the SASS instruction that marks one DP cell in each kernel's hot loop:
-# on the packed route one per two problems' cell, the add-max with zero
-# (T); on the scalar routes and in sw_banded the three-way H maximum with
-# zero; and one chain DP step (64 candidate predecessors) in band_build's:
-# the warp-wide maximum
+# on the packed routes one per two problems' cell, the add-max with zero
+# (T); on the scalar routes the three-way H maximum with zero; and one
+# chain DP step (64 candidate predecessors) in band_build's: the
+# warp-wide maximum
 PACKED_CELL_OPCODE = "VIADDMNMX.S16x2.RELU"
 CELL_OPCODE = "VIMNMX3.RELU"
 CHAIN_OPCODE = "REDUX"
 # the DPX opcodes (add-max and three-way max) among a loop's instructions
 DPX_OPCODES = ("VIADDMNMX", "VIMNMX3")
-STRIP = 8  # read rows per strip of sw_banded.cu (kStrip)
+STRIP = 8  # read rows per strip of sw_banded.cu (kStrip, every route)
+# the per-SM limits that, with a kernel's registers, set its blocks per SM
+SM_REGISTERS, SM_THREADS, REGISTER_UNIT = 65536, 2048, 8
 # band_build's bound charges each chain candidate the instructions of its
-# scoring alone (band_build.cu `candidate`) and one max: the SASS of a loop
-# that does that per candidate less that of the same loop without it (its
-# LOP3s, which only consume the loads, not counted), both loading the
-# candidate's slot. A key lookup is charged a source count:
-# the key's rolling update (shift, or, mask) and one probe of a hashed
-# index of the haplotype's keys (hash, load, compare, branch).
+# scoring alone and one max, in the least of two forms: band_build.cu's
+# `candidate` (included), and the three-way-minimum form written out here,
+# with no source of the kernel (min3_probe: the overlap's step as
+# min(di, dj, k), the gap penalty as g + 5 min(g, 1), one compare against
+# the start score, score x 64 + nearness). Each is the SASS of a loop that
+# scores one candidate per iteration less that of the same loop without
+# it (its LOP3s, which only consume the loads, not counted), all loading
+# the candidate's slot. A key lookup is charged a source count: the key's
+# rolling update (shift, or, mask) and one probe of a hashed index of the
+# haplotype's keys (hash, load, compare, branch).
 PROBE_SRC = r'''
 #include "band_build.cu"
 
@@ -192,6 +212,24 @@ __global__ void candidate_probe(const int* __restrict__ slots, int n, int a,
     const int* q = slots + 4 * k;
     const Slot v{q[0], q[1], q[2], q[3]};
     best = max(best, candidate(v, a, i, j));
+  }
+  out[threadIdx.x] = best;
+}
+
+// slots: int32 [n, 4], one (i, j, sc, nearness) per candidate; the
+// scoring written out: k = 6, a gap of g costs g + 5 (none at g = 0),
+// keys below the start score of k are 0
+__global__ void min3_probe(const int* __restrict__ slots, int n, int a,
+                           int i, int j, int* __restrict__ out) {
+  int best = a;
+#pragma unroll 1
+  for (int k = 0; k < n; ++k) {
+    const int* q = slots + 4 * k;
+    const int di = i - q[0], dj = j - q[1];
+    const int step = __vimin3_s32(di, dj, 6);
+    const int g = abs(di - dj);
+    const int sc = q[2] + step - (g + 5 * min(g, 1));
+    best = max(best, step > 0 && sc > 6 ? sc * 64 + q[3] : 0);
   }
   out[threadIdx.x] = best;
 }
@@ -822,6 +860,41 @@ def long_hap_family(rng, n_reads=512, lx=160, ly=100_000):
     return x, haps, idx, idx + 1
 
 
+def parted_family(rng, n_reads=4096, lx=160, ly=224, indel=60):
+    """Reads of 140-150 bases (1 % errors) across a 60-base deletion (even
+    variants: a 224-base ref) or insertion (odd: a 164-base ref) at the
+    middle of the ref, sampled from the ref or the alt: on one side of the
+    indel a read's ref and alt bands lie 60 columns apart, more than a
+    band's width (~41), so a packed thread's two bands do not meet there."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    n_var = max(1, n_reads // 64)
+    haps = np.ones((2 * n_var, ly), np.uint8)
+    for v in range(n_var):
+        ref = rng.choice(bases, ly if v % 2 == 0 else ly - indel)
+        mid = len(ref) // 2
+        alt = (np.concatenate([ref[:mid], ref[mid + indel :]]) if v % 2 == 0
+               else np.concatenate([ref[:mid], rng.choice(bases, indel),
+                                    ref[mid:]]))
+        haps[2 * v, : len(ref)] = ref
+        haps[2 * v + 1, : len(alt)] = alt
+    var = rng.integers(0, n_var, n_reads)
+    x = np.zeros((n_reads, lx), np.uint8)
+    for r in range(n_reads):
+        src = haps[2 * var[r] + int(rng.integers(0, 2))]
+        src = src[src != 1]
+        n = min(int(rng.integers(140, 151)), len(src))
+        mid = len(src) // 2
+        o = int(np.clip(mid - int(rng.integers(20, n - 20)), 0,
+                        len(src) - n))
+        x[r, :n] = src[o : o + n]
+    err = (rng.random(x.shape) < 0.01) & (x != 0)
+    x[err] = rng.choice(bases, int(err.sum()))
+    idx = (2 * var).astype(np.int32)
+    return x, haps, idx, idx + 1
+
+
 def unseeded_family(rng, n_reads, lx, ly):
     """Reads over A/C with a C at every fifth base against haplotypes over
     A/G: no shared 6-mer, so every band is empty and every score 0."""
@@ -879,45 +952,62 @@ def repetitive_family(rng, n_reads=256, lx=64, ly=128):
     return x, haps, 2 * idx, 2 * idx + 1
 
 
-def strip_stats(x, jlo, jhi, ly):
+def strip_stats(lens, jlo, jhi, ly, packed=False):
     """What sw_banded.cu does with its strips of STRIP rows on these
-    bounds (its zone rule, in numpy): (visited cells, core cells, share of lane
-    slots its warps leave idle). A strip visits [c0, c1), the union of its
-    in-band rows; its core is [max jlo, min jhi) over its rows below the
-    read's true length, clipped to [c0, c1); a warp runs each of a strip's
-    three zones (entry, core, exit) as long as its widest lane."""
+    bounds (its zone rule, in numpy): (visited problem cells, core problem
+    cells, share of lane slots its warps leave idle). lens: each problem's
+    true read length. A strip visits [c0, c1), the union of its in-band
+    rows; its core is [max jlo, min jhi) over its rows below the read's
+    true length, clipped to [c0, c1). On the scalar routes a thread holds
+    one problem and a warp runs each of a strip's three zones (entry,
+    core, exit) as long as its widest lane. On the packed route (packed)
+    thread k holds problems 2k and 2k + 1, its strips take the union and
+    the intersection over both, and a warp's lanes with a cell in the
+    strip run its zones together in steps of two columns from their c0:
+    the entry zone to the widest lane's core start, the core to the
+    narrowest lane's core end, the exit zone to the widest lane's c1;
+    each column a lane visits is a cell of both problems."""
     import numpy as np
 
     lx, P = jlo.shape
-    strip = STRIP
-    n = -(-lx // strip) * strip
-    nz = x != 0
-    len_x = np.where(nz.any(1), lx - np.argmax(nz[:, ::-1], axis=1), 0)
-    len_x = np.repeat(len_x, 2)
-    lo = np.zeros((n, P), np.int64)
-    hi = np.zeros((n, P), np.int64)
-    lo[:lx], hi[:lx] = jlo, jhi
+    h = 2 if packed else 1
+    T = -(-P // (32 * h)) * 32  # threads, whole warps
+    n = -(-lx // STRIP) * STRIP
+    lo = np.zeros((n, T * h), np.int64)
+    hi = np.zeros((n, T * h), np.int64)
+    lo[:lx, :P], hi[:lx, :P] = jlo, jhi
+    length = np.zeros(T * h, np.int64)
+    length[:P] = lens
+    lo = lo.reshape(n // STRIP, STRIP, T, h)
+    hi = hi.reshape(n // STRIP, STRIP, T, h)
     band = lo < hi
-    under = np.arange(n)[:, None] < len_x[None, :]
-    big = np.iinfo(np.int64).max
+    live = (np.arange(n).reshape(-1, STRIP)[:, :, None, None]
+            < length.reshape(T, h)[None, None])
+    c0 = np.maximum(np.where(band, lo, ly).min((1, 3)), 0)
+    c1 = np.minimum(np.where(band, hi, 0).max((1, 3)), ly)
+    a = np.maximum(c0, np.minimum(np.where(live, lo, 0).max((1, 3)), c1))
+    b = np.maximum(a, np.minimum(np.where(live, hi, ly).min((1, 3)), c1))
+    run = c0 < c1
 
-    def per_strip(a, reduce):
-        return reduce(a.reshape(-1, strip, P), axis=1)
+    def warps(v):  # [strips, warps, 32]
+        return v.reshape(v.shape[0], -1, 32)
 
-    c0 = np.maximum(per_strip(np.where(band, lo, big), np.min), 0)
-    c1 = np.minimum(per_strip(np.where(band, hi, 0), np.max), ly)
-    cols = np.maximum(c1 - c0, 0)
-    core_lo = per_strip(np.where(under, lo, 0), np.max)
-    core_hi = per_strip(np.where(under, hi, ly), np.min)
-    a = np.maximum(c0, np.minimum(core_lo, c1))
-    b = np.maximum(a, np.minimum(core_hi, c1))
-    live = cols > 0
-    core = np.where(live, b - a, 0)
-    warp_cols = sum(
-        np.where(live, z, 0).reshape(cols.shape[0], -1, 32).max(axis=2).sum()
-        for z in (a - c0, b - a, c1 - b))
-    return (strip * int(cols.sum()), strip * int(core.sum()),
-            1 - cols.sum() / (32 * warp_cols))
+    if packed:
+        on = warps(run)
+        entry = np.where(on, warps(-(-(a - c0) // 2)), 0).max(2)
+        core = np.maximum(np.where(on, warps((b - c0) // 2), 1 << 40)
+                          .min(2), entry)
+        steps = np.where(on, warps(-(-(c1 - c0) // 2)), 0).max(2)
+        lanes = on.sum(2)
+        return (2 * STRIP * h * int((lanes * steps).sum()),
+                2 * STRIP * h * int((lanes * (core - entry)).sum()),
+                1 - (lanes * steps).sum() / (32 * steps.sum())
+                if steps.any() else 0.0)
+    zones = [np.where(run, z, 0) for z in (a - c0, b - a, c1 - b)]
+    cols = sum(zones)
+    warp_cols = sum(warps(z).max(axis=2).sum() for z in zones)
+    return (STRIP * int(cols.sum()), STRIP * int(zones[1].sum()),
+            1 - cols.sum() / (32 * warp_cols) if warp_cols else 0.0)
 
 
 def homopolymer_locus(rng, n_reads=128, lx=160, ly=4032):
@@ -1137,24 +1227,35 @@ def phase_sass(paths):
     log(f"sass: the least cell update {cell:.4f} instructions per problem "
         f"cell ({cell_dpx:.4f} of them DPX); sw_pair's packed loop issues "
         f"{packed:.4f} ({packed_dpx:.4f} DPX), its scalar loop {scalar:.4f}")
-    loops = sorted(sass_loops(banded, BANDED_KERNEL_SYMBOL, CELL_OPCODE),
-                   key=lambda t: t[0] / t[1])
-    for name, loop in (("core", loops[0]), ("masked", loops[-1])):
-        log(f"sass: {BANDED_KERNEL_SYMBOL} {name} loop, per cell: "
-            + _describe(*loop))
-    zones = (loops[0][0] / loops[0][1], loops[-1][0] / loops[-1][1])
+    zones = {}
+    for route, sym, opcode, per in (
+            ("packed", BANDED_KERNEL_SYMBOL, PACKED_CELL_OPCODE, 2),
+            ("word32", BANDED_SCALAR_SYMBOL, CELL_OPCODE, 1)):
+        loops = sorted(sass_loops(banded, sym, opcode),
+                       key=lambda t: t[0] / t[1])
+        for name, loop in (("core", loops[0]), ("masked", loops[-1])):
+            log(f"sass: {sym} {name} loop, per "
+                + ("two problems' cell: " if per == 2 else "cell: ")
+                + _describe(*loop))
+        zones[route] = tuple(t[0] / (per * t[1])
+                             for t in (loops[0], loops[-1]))
+    log(f"sass: sw_banded per problem cell, core and masked: packed "
+        f"{zones['packed'][0]:.4f} and {zones['packed'][1]:.4f}, word32 "
+        f"{zones['word32'][0]:.4f} and {zones['word32'][1]:.4f}; the least "
+        f"update {cell:.4f}")
     probe_loops = {}
-    for sym in ("_Z15candidate_probe", "_Z10load_probe"):
+    for sym in ("_Z15candidate_probe", "_Z10min3_probe", "_Z10load_probe"):
         loop = min(sass_loops(probe, sym, "LDG"), key=lambda t: t[0])
         lop3 = loop[2]["LOP3.LUT"] if sym == "_Z10load_probe" else 0
         probe_loops[sym] = loop[0] - lop3
         log(f"sass: {sym} loop, per iteration: " + _describe(loop[0], 1,
                                                              loop[2])
             + (f"; {lop3} LOP3 not counted" if lop3 else ""))
-    per_candidate = (probe_loops["_Z15candidate_probe"]
-                     - probe_loops["_Z10load_probe"])
+    forms = {sym: probe_loops[sym] - probe_loops["_Z10load_probe"]
+             for sym in ("_Z15candidate_probe", "_Z10min3_probe")}
+    per_candidate = min(forms.values())
     if per_candidate <= 0:
-        fail("the candidate probe's loop is no longer than the load probe's")
+        fail("a candidate probe's loop is no longer than the load probe's")
     # the DP step's hot loop: the one of the most warp steps per pass (a
     # full chunk's, unrolled), then the fewest instructions
     n_instr, n, hist = max(sass_loops(band, CHAIN_KERNEL_SYMBOL,
@@ -1162,8 +1263,10 @@ def phase_sass(paths):
                            key=lambda t: (t[1], -t[0]))
     log(f"sass: {CHAIN_KERNEL_SYMBOL} DP step, per {CHAIN_OPCODE}: "
         + _describe(n_instr, n, hist))
-    log(f"sass: a chain candidate's own work {per_candidate} instructions "
-        f"(scoring and one max); band_build's DP step issues "
+    log(f"sass: a chain candidate's own work, scoring and one max: "
+        f"band_build.cu's candidate {forms['_Z15candidate_probe']}, the "
+        f"three-way-minimum form {forms['_Z10min3_probe']} instructions; "
+        f"charged the least, {per_candidate}; band_build's DP step issues "
         f"{n_instr / n * 32 / 64:.4f} per candidate (64 per warp step)")
     return dict(cell=cell, cell_dpx=cell_dpx, packed=packed,
                 packed_dpx=packed_dpx, scalar=scalar, zones=zones,
@@ -1387,6 +1490,7 @@ def phase_banded_equality(rng, threads):
                                hap_len=(3800, 4032)),
         "wide_40000": wide_family(rng),
         "repetitive": repetitive_family(rng),
+        "parted": parted_family(rng),
     }
     worst = band_worst = index_worst = rows_band = rows_worst = 0
     for name, (x, haps, ir, ia) in families.items():
@@ -1447,6 +1551,14 @@ def phase_banded_equality(rng, threads):
             fail("the wide family's band or score is not the expected one")
         if name == "repetitive" and int(matches.max()) < 1000:
             fail("the repetitive family has fewer matches than intended")
+        if name == "parted":
+            apart = int((np.maximum(jlo[:, 1::2] - jhi[:, 0::2],
+                                    jlo[:, 0::2] - jhi[:, 1::2]) > 0)
+                        .any(axis=0).sum())
+            log(f"band_build parted: {apart} of {len(x)} reads have rows "
+                "whose ref and alt bands do not meet")
+            if apart < len(x) // 8:
+                fail("the parted family's ref and alt bands meet")
         bad, err = check_rows(name, x, haps, ir, [h[:, 0::2] for h in host])
         rows_band = max(rows_band, bad)
         rows_worst = max(rows_worst, err)
@@ -1480,6 +1592,7 @@ def phase_banded_equality(rng, threads):
     err, _ = check_banded("homopolymer", (xt, ht, irt, iat) + tuple(got))
     worst = max(worst, err)
     worst = max(worst, check_wide_banded(rng, threads))
+    worst = max(worst, check_banded_limit(rng, threads))
     err, bad = check_long_hap(rng, threads)
     return (max(band_worst, bad), max(worst, err), index_worst, rows_band,
             rows_worst)
@@ -1506,16 +1619,19 @@ def check_rows(name, x, haps, ir, host):
     sync()
     bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
               for g, h, q in zip(got, host, plain))
-    sc = sw_cuda.banded_scores(xt, yt, *got)
     whole = sw_cuda.banded_batch_scores(xt, yt)
     ref = sw_banded_torch.banded_scores(xt, yt, *got)
     sync()
-    err = max(int((sc - ref).abs().max().item()),
-              int((whole - ref).abs().max().item())) if len(x) else 0
+    errs = {route: int((sw_cuda.banded_scores(xt, yt, *got, route=route)
+                        - ref).abs().max().item()) if len(x) else 0
+            for route in banded_routes(x.shape[1], haps.shape[1])}
+    err = max(*errs.values(), int((whole - ref).abs().max().item())
+              if len(x) else 0)
     n = (sw_cuda.BAND_ROW_LAUNCHES - n0[0], sw_cuda.BANDED_ROW_LAUNCHES - n0[1])
     log(f"plain rows {name:11s} B={len(x)} lx={x.shape[1]} ly={haps.shape[1]}"
         f": band_build bound mismatches vs host and plain {bad}; sw_banded "
-        f"max|err|={err}; launches in plain-row mode {n}")
+        f"max|err| " + ", ".join(f"{r} {e}" for r, e in errs.items())
+        + f", in banded_batch_scores {err}; launches in plain-row mode {n}")
     if bad or err or min(n) < 2:
         fail(f"the plain-row banded mode disagrees on {name}")
     return bad, err
@@ -1579,7 +1695,8 @@ def check_long_hap(rng, threads):
         n_band = sw_cuda.BAND_LAUNCHES - n0[2]
         args = (xt, ht, irt, iat) + tuple(got)
         err, _ = check_banded("long_hap", args)
-        n_banded = (sw_cuda.BANDED_LAUNCHES - n0[1]) // 2
+        n_banded = (sw_cuda.BANDED_LAUNCHES - n0[1]) // (
+            2 * len(banded_routes(x.shape[1], haps.shape[1])))
         pair = sw_cuda.pair_scores(xt, ht, irt, iat)
         sync()
         n_pair = sw_cuda.LAUNCHES - n0[0]
@@ -1618,28 +1735,80 @@ def check_long_hap(rng, threads):
     return max(err, pair_err), bad
 
 
+def banded_routes(lx, ly):
+    """sw_banded's routes that hold an lx x ly bucket (packed: ly <=
+    32,767; word32: min(lx, ly) <= 65,535; word64: any): the one
+    banded_route picks first, then the others."""
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    holds = (ly <= sw_cuda.PACKED_MAX, min(lx, ly) < 1 << 16, True)
+    own = sw_cuda.banded_route(lx, ly)
+    return [own] + [r for r, ok in zip(sw_cuda.PAIR_ROUTES, holds)
+                    if ok and r != own]
+
+
 def check_banded(name, args):
     """sw_banded's scores and codes on `args` (reads, haplotypes, indices,
-    bounds on the card) against its plain version; (max |err|, the plain
-    scores)."""
-    import torch
-
+    bounds on the card) on every route that holds the width against its
+    plain version; (max |err|, the plain scores)."""
     from vartrix_tpu_torch.ops import sw_banded_torch, sw_cuda, sw_torch
 
     t0 = time.perf_counter()
     ref = sw_banded_torch.banded_pair_scores(*args)
     sync()
     dt = time.perf_counter() - t0
-    sc = sw_cuda.banded_pair_scores(*args)
-    codes = sw_cuda.banded_pair_calls(*args)
-    sync()
-    err = int((sc - ref).abs().max().item())
-    bad = int((codes != sw_torch.calls_from_scores(ref)).sum().item())
-    log(f"sw_banded {name:11s}: max|err|={err} code mismatches={bad}; max "
-        f"score {int(ref.max().item())}; plain {dt:.1f} s")
-    if err or bad:
+    calls = sw_torch.calls_from_scores(ref)
+    res = {}
+    for route in banded_routes(args[0].shape[1], args[1].shape[1]):
+        sc = sw_cuda.banded_pair_scores(*args, route=route)
+        codes = sw_cuda.banded_pair_calls(*args, route=route)
+        sync()
+        res[route] = (int((sc - ref).abs().max().item()),
+                      int((codes != calls).sum().item()))
+    log(f"sw_banded {name:11s}: " + "; ".join(
+        f"{route} max|err|={e} code mismatches={b}"
+        for route, (e, b) in res.items())
+        + f"; max score {int(ref.max().item())}; plain {dt:.1f} s")
+    if any(e or b for e, b in res.values()):
         fail(f"sw_banded disagrees with the plain version on {name}")
-    return err, ref
+    return 0, ref
+
+
+def check_banded_limit(rng, threads):
+    """sw_banded at its packed route's edge, ly = 32,767
+    (packed_limit_family: lx = 32,768, ly = 32,767; the first read scores
+    32,767, the greatest H and column offset the route holds):
+    band_build's bounds against the host reference (the plain
+    builder's all-pairs mask would hold 1 G cells per problem), the scores
+    on every route in both per_read modes against the plain version.
+    Returns max |err|."""
+    from vartrix_tpu_torch.ops import sw_cuda, sw_native
+
+    x, haps, ir, ia, _ = packed_limit_family(rng)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    got = sw_cuda.band_bounds(xt, ht, irt, iat)
+    host = sw_native.band_bounds(x, haps, ir, ia, threads)
+    sync()
+    bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
+    log(f"band_build packed_limit R={len(x)} lx={x.shape[1]} "
+        f"ly={haps.shape[1]}: bound mismatches vs host {bad}")
+    if bad:
+        fail("band_build disagrees with the host reference on the packed "
+             "limit family")
+    _, ref = check_banded("packed_limit", (xt, ht, irt, iat) + tuple(got))
+    if sw_cuda.banded_route(x.shape[1], haps.shape[1]) != "packed" or \
+            ref.max().item() != haps.shape[1]:
+        fail("the packed limit family is not at the packed route's edge")
+    y = ht[irt.long()]
+    lo, hi = (b[:, 0::2].contiguous() for b in got)
+    errs = {route: int((sw_cuda.banded_scores(xt, y, lo, hi, route=route)
+                        - ref[0]).abs().max().item())
+            for route in banded_routes(x.shape[1], haps.shape[1])}
+    log("plain rows packed_limit: sw_banded max|err| " + ", ".join(
+        f"{r} {e}" for r, e in errs.items()))
+    if any(errs.values()):
+        fail("sw_banded's plain-row mode disagrees at the packed limit")
+    return 0
 
 
 def time_cuda(fn, warmup, reps):
@@ -1818,8 +1987,8 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
     import numpy as np
     import torch
 
-    from vartrix_tpu_torch.ops import (band_torch, sw_banded_torch, sw_cuda,
-                                       sw_native)
+    from vartrix_tpu_torch.ops import (_build, band_torch, sw_banded_torch,
+                                       sw_cuda, sw_native)
 
     per_candidate, pair_instr = sass["per_candidate"], sass["cell"]
     x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
@@ -1912,7 +2081,10 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
                 bound_by="operations" if b_ops_ms >= b_bytes_ms else "bytes",
                 library_ms=None, split=split,
                 mapping_ms={lanes: ms for lanes, (ms, _) in mapping.items()},
-                share_of_bound=b_bound / band_ms if bound_holds else None)
+                share_of_bound=b_bound / band_ms if bound_holds else None,
+                share_note="its DP step issues fewer instructions per "
+                "candidate than the bound charges: the bound is no lower "
+                "bound")
     # the plain rows carry a haplotype row and an index per problem
     rows_in = xr.numel() + yr.numel() + 4 * pairs
     rb_bytes_ms = (rows_in + jlo.nbytes + jhi.nbytes) / HBM_BYTES_PER_S * 1e3
@@ -1931,24 +2103,45 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
     band_rows = dict(ms=band_rows_ms, plain_ms=band_rows_plain_ms,
                      bound_ms=rb_bound, library_ms=None,
                      bound_by="operations" if b_ops_ms >= rb_bytes_ms
-                     else "bytes")
+                     else "bytes",
+                     share_of_bound=(rb_bound / band_rows_ms if bound_holds
+                                     else None),
+                     share_note=band["share_note"])
     index_timing = time_index(args[1], issue_per_s)
-    # sw_banded on the kernel's bounds
+    # sw_banded on the kernel's bounds: its packed route (the path's) and
+    # its 32-bit scalar route, in turns, in both modes; plain rows also in
+    # an order that pairs unrelated problems in a packed thread
+    perm = torch.from_numpy(rng.permutation(pairs)).cuda()
+    shuffled = (xr[perm], yr[perm], jlo_r[:, perm].contiguous(),
+                jhi_r[:, perm].contiguous())
     dp_args = args + (jlo_t, jhi_t)
-    dp_fn = {"pair": lambda: sw_cuda.banded_pair_calls(*dp_args),
-             "rows": lambda: sw_cuda.banded_scores(xr, yr, jlo_r, jhi_r)}
+    dp_fn = {"pair": lambda route: sw_cuda.banded_pair_calls(*dp_args,
+                                                             route=route),
+             "rows": lambda route: sw_cuda.banded_scores(
+                 xr, yr, jlo_r, jhi_r, route=route),
+             "unrelated rows": lambda route: sw_cuda.banded_scores(
+                 *shuffled, route=route)}
+    order = [("pair", "word32"), ("pair", "packed"), ("rows", "packed"),
+             ("rows", "word32"), ("unrelated rows", "packed")]
     dp_times = collections.defaultdict(list)
-    for mode in ("pair", "rows", "rows", "pair"):
-        dp_times[mode].append(time_cuda(dp_fn[mode], 3, 15))
-    ms, rows_ms = (statistics.median(dp_times[m]) for m in ("pair", "rows"))
+    for mode, route in order + order[::-1]:
+        dp_times[mode, route].append(time_cuda(
+            lambda: dp_fn[mode](route), 3, 15))
+    med = {k: statistics.median(v) for k, v in dp_times.items()}
+    ms, rows_ms = med["pair", "packed"], med["rows", "packed"]
     plain_ms = time_cuda(lambda: sw_banded_torch.banded_pair_calls(
         *dp_args), 1, 3)
     rows_plain_ms = time_cuda(lambda: sw_banded_torch.banded_scores(
         xr, yr, jlo_r, jhi_r), 1, 3)
-    rows_got = sw_cuda.banded_scores(xr, yr, jlo_r, jhi_r)
-    pair_got = sw_cuda.banded_pair_scores(*dp_args)
-    if not torch.equal(rows_got, pair_got.T.reshape(-1)):
-        fail("sw_banded's plain-row scores differ from its pair scores")
+    for route in ("packed", "word32"):
+        pair_got = sw_cuda.banded_pair_scores(*dp_args, route=route)
+        rows_got = sw_cuda.banded_scores(xr, yr, jlo_r, jhi_r, route=route)
+        unrelated = torch.empty_like(rows_got)
+        unrelated[perm] = sw_cuda.banded_scores(*shuffled, route=route)
+        if not (torch.equal(rows_got, pair_got.T.reshape(-1))
+                and torch.equal(unrelated, rows_got)):
+            fail(f"sw_banded's plain-row scores differ from its pair scores "
+                 f"on the {route} route")
     in_band = int((jhi.astype(np.int64) - jlo).sum())
     full = true_cells(x, haps, ir, ia)
     ops_ms = in_band * pair_instr / issue_per_s * 1e3
@@ -1956,49 +2149,92 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
               + jhi.nbytes + MAIN_READS)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    # the bound charges a cell the least update; it bounds the kernel
+    # while the packed core loop issues no fewer per problem cell
+    dp_bound_holds = sass["zones"]["packed"][0] >= pair_instr
     log(f"timing sw_banded cells: {in_band} in band ({in_band / pairs:.1f} "
         f"per pair; full SW needs {full}, {100 * in_band / full:.1f} %)")
     log(f"timing sw_banded bound: {in_band} in-band cells x "
         f"{pair_instr:.4f} instructions per cell (the least cell update, "
         f"the cell probe's SASS) / {issue_per_s:.6g} instructions/s = "
-        f"{ops_ms:.4f} ms (at sw_pair's scalar loop's {sass['scalar']:.4f} "
-        f"per cell, the bound of PR 7 and before: "
-        f"{in_band * sass['scalar'] / issue_per_s * 1e3:.4f} ms); "
-        f"{nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; "
-        f"bound {bound_ms:.4f} ms; library_ms null: no PyTorch call "
-        "computes Smith-Waterman")
-    visited, core, idle = strip_stats(x, jlo, jhi, MAIN_LY)
-    core_i, masked_i = sass["zones"]
-    issued = core * core_i + (visited - core) * masked_i
-    issued_ms = issued / issue_per_s * 1e3
-    log(f"timing sw_banded: {ms:.4f} ms ({in_band / ms / 1e6:.1f} G in-band "
-        f"cells/s), bound {100 * bound_ms / ms:.1f} % of it; plain "
-        f"{plain_ms:.3f} ms; visits {visited} cells "
-        f"({100 * visited / in_band:.1f} % of in band), {core} in the core "
-        f"({100 * core / visited:.1f} % of "
-        f"visited) at {core_i:.4f} instructions per cell and {visited - core}"
-        f" masked at {masked_i:.4f}; {issued / in_band:.4f} issued per "
-        f"in-band cell, {issued_ms:.4f} ms at full issue "
-        f"({100 * issued_ms / ms:.1f} % of its time); its warps leave "
-        f"{100 * idle:.1f} % of lane slots idle")
+        f"{ops_ms:.4f} ms; {nbytes} bytes / {HBM_BYTES_PER_S:.3g} B/s = "
+        f"{bytes_ms:.4f} ms; bound {bound_ms:.4f} ms; the packed core loop "
+        f"issues {sass['zones']['packed'][0]:.4f} per problem cell, "
+        + ("no fewer than charged" if dp_bound_holds else
+           "fewer than charged: no lower bound, no share reported")
+        + "; library_ms null: no PyTorch call computes Smith-Waterman")
+    lens = np.repeat((x != 0).sum(1), 2)
+    order_lens, order_lo, order_hi = (lens[perm.cpu().numpy()],
+                                      *(b[:, perm.cpu().numpy()]
+                                        for b in (jlo, jhi)))
+    for route, sym in (("packed", BANDED_KERNEL_SYMBOL),
+                       ("word32", BANDED_SCALAR_SYMBOL)):
+        packed = route == "packed"
+        visited, core, idle = strip_stats(lens, jlo, jhi, MAIN_LY, packed)
+        core_i, masked_i = sass["zones"][route]
+        issued = core * core_i + (visited - core) * masked_i
+        issued_ms = issued / issue_per_s * 1e3
+        regs = registers(_build.banded_kernel_library(), sym)
+        per_sm = min(SM_THREADS // 128, SM_REGISTERS // (128 * (
+            -(-regs // REGISTER_UNIT) * REGISTER_UNIT)))
+        blocks = -(-pairs // (256 if packed else 128))
+        t = {m: med[m, route] for m in ("pair", "rows")}
+        log(f"timing sw_banded {route} route: {t['pair']:.4f} ms pair mode "
+            f"({in_band / t['pair'] / 1e6:.1f} G in-band cells/s), "
+            f"{t['rows']:.4f} plain rows; visits {visited} problem cells "
+            f"({100 * visited / in_band:.1f} % of in band), {core} in the "
+            f"core ({100 * core / visited:.1f} % of visited) at "
+            f"{core_i:.4f} instructions per problem cell and "
+            f"{visited - core} masked at {masked_i:.4f}; "
+            f"{issued / in_band:.4f} issued per in-band cell, "
+            f"{issued_ms:.4f} ms at full issue "
+            f"({100 * issued_ms / t['pair']:.1f} % of the pair mode's "
+            f"time); its warps leave {100 * idle:.1f} % of lane slots idle; "
+            f"{regs} registers, {per_sm} blocks of 128 per SM, {blocks} "
+            f"blocks: {blocks / (sms * per_sm):.2f} waves")
+        if packed:
+            u_visited, u_core, u_idle = strip_stats(order_lens, order_lo,
+                                                    order_hi, MAIN_LY, True)
+            log(f"timing sw_banded packed route, plain rows of unrelated "
+                f"pairs: {med['unrelated rows', route]:.4f} ms; visits "
+                f"{u_visited} problem cells "
+                f"({100 * u_visited / in_band:.1f} % of in band), "
+                f"{100 * u_core / u_visited:.1f} % in the core; "
+                f"{100 * u_idle:.1f} % of lane slots idle")
+    log(f"timing sw_banded: {ms:.4f} ms packed, {med['pair', 'word32']:.4f}"
+        f" ms word32, in turns (" + "; ".join(
+            f"{m} {r} " + ", ".join(f"{v:.4f}" for v in dp_times[m, r])
+            for m, r in order)
+        + f"); plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms"
+        + (f", {100 * bound_ms / ms:.1f} % of the packed route's time"
+           if dp_bound_holds else ", no share reported"))
+    share_note = ("its packed core loop issues fewer instructions per "
+                  "problem cell than the bound charges: the bound is no "
+                  "lower bound")
     banded = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                  library_ms=None)
+                  library_ms=None, scalar_ms=med["pair", "word32"],
+                  share_of_bound=bound_ms / ms if dp_bound_holds else None,
+                  share_note=share_note)
     r_bytes = rows_in + jlo.nbytes + jhi.nbytes + 4 * pairs
     r_bytes_ms = r_bytes / HBM_BYTES_PER_S * 1e3
     r_bound = max(ops_ms, r_bytes_ms)
     log(f"timing sw_banded plain rows (int32 scores): {pairs} problems in "
-        f"{rows_ms:.4f} ms (" + ", ".join(f"{t:.4f}" for t in dp_times["rows"])
-        + ") against the pair mode's (int8 codes) " + ", ".join(
-            f"{t:.4f}" for t in dp_times["pair"])
-        + f" ms in turns ({100 * (rows_ms / ms - 1):+.1f} %); plain "
-        f"{rows_plain_ms:.3f} ms; bound {r_bound:.4f} ms (operations "
-        f"{ops_ms:.4f} ms as the pair mode's, {r_bytes} bytes "
-        f"{r_bytes_ms:.4f} ms), {100 * r_bound / rows_ms:.1f} % of the "
-        "kernel's time")
+        f"{rows_ms:.4f} ms on the packed route against the pair mode's "
+        f"(int8 codes) {ms:.4f} ms in turns ({100 * (rows_ms / ms - 1):+.1f}"
+        f" %; word32 {med['rows', 'word32']:.4f} against "
+        f"{med['pair', 'word32']:.4f}); plain {rows_plain_ms:.3f} ms; bound "
+        f"{r_bound:.4f} ms (operations {ops_ms:.4f} ms as the pair mode's, "
+        f"{r_bytes} bytes {r_bytes_ms:.4f} ms)"
+        + (f", {100 * r_bound / rows_ms:.1f} % of the kernel's time"
+           if dp_bound_holds else ", no share reported"))
     banded_rows = dict(ms=rows_ms, plain_ms=rows_plain_ms, bound_ms=r_bound,
                        bound_by="operations" if ops_ms >= r_bytes_ms
-                       else "bytes", library_ms=None)
+                       else "bytes", library_ms=None,
+                       scalar_ms=med["rows", "word32"],
+                       share_of_bound=(r_bound / rows_ms if dp_bound_holds
+                                       else None),
+                       share_note=share_note)
     return band, banded, index_timing, band_rows, banded_rows
 
 # the lines of csrc/band_build.cu's chain kernel after which its chain DP
@@ -2974,30 +3210,160 @@ def phase_sparse(work, data, device_args=("--backend", "cuda"),
             + f" | {n} ({strategy}) | {rss:.1f} | {after}")
 
 
-def band_ab(baseline, rng, probes):
-    """band_build of this checkout against that of `baseline` (the root
-    of another checkout, e.g. the parent commit's, unpacked by git
-    archive) in one process: both sources built here, then at the main
-    bucket shape in both per_read modes, in turns (baseline, this, this,
-    baseline), each build's split (band_split, a part whose mark the
-    baseline lacks not measured); the bounds must be equal. PR 11's
-    kernel, whose split PERF.md records (one chain kernel, its band rows
-    always in a work buffer, no marks), gets the DP-end mark before its
-    band fill and its work buffer on every width."""
+# Copies of sw_banded.cu's packed route for its time split and its
+# choices (--band): probes, whose outputs are not the kernel's, with its
+# scratch traffic cut (no word stored or loaded, so every strip starts as
+# the first does) and with every thread's haplotype rows replaced by the
+# matrix's first two (a warp's haplotype loads then touch one line); and
+# the kernel with another strip height or blocks per SM, exact. Each a
+# list of (line, replacement), skipped where the source lacks a line.
+STRIP_LINE = "constexpr int kStrip = 8;           // read rows per strip"
+BLOCKS_LINE = "constexpr int kPackedBlocks = 4;"
+BANDED_VARIANTS = {
+    "no scratch": [
+        ("        col_out[(kCols * m + d) * stride] = "
+         "make_uint2(g[kStrip - 1], f);",
+         "        if (g[kStrip - 1] == 0x7fff7fffu) col_out[(kCols * m + d) * "
+         "stride] = make_uint2(g[kStrip - 1], f);"),
+        ("  return off < static_cast<unsigned>(pv_w) ? col_in[off * stride]",
+         "  return off < static_cast<unsigned>(pv_w) && pv_w < 0 ? "
+         "col_in[off * stride]")],
+    "one haplotype pair": [
+        ("haps + static_cast<size_t>(hidx0) * ly,\n"
+         "      haps + static_cast<size_t>(hidx1) * ly", "haps, haps + ly")],
+    "6-row strips": [(STRIP_LINE, "constexpr int kStrip = 6;")],
+    "12-row strips": [(STRIP_LINE, "constexpr int kStrip = 12;")],
+    "16-row strips, 3 blocks per SM": [
+        (STRIP_LINE, "constexpr int kStrip = 16;"),
+        (BLOCKS_LINE, "constexpr int kPackedBlocks = 3;")],
+    "5 blocks per SM": [(BLOCKS_LINE, "constexpr int kPackedBlocks = 5;")],
+}
+
+
+def banded_split(rng):
+    """sw_banded's packed route at the main shape against its variants
+    (BANDED_VARIANTS), each a single launch over the whole chunk, in turns
+    (kernel, variants, variants reversed, kernel) in both per_read modes:
+    the time its scratch traffic and its haplotype loads take, and its
+    strip height and blocks per SM against others (those exact to the
+    kernel's output, the probes not)."""
+    import torch
+
+    from vartrix_tpu_torch.ops import _build, sw_cuda
+
+    with open(_build.BANDED_KERNEL_SRC) as f:
+        src = f.read()
+    sources = {}
+    for name, edits in BANDED_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            text = text.replace(old, new) if text.count(old) == 1 else None
+            if text is None:
+                break
+        if text is None:
+            log(f"timing sw_banded split: no {name} variant (a line is "
+                "missing from the source), not measured")
+        else:
+            sources[name] = text
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = {name: ex.submit(build_probe, "banded_" + re.sub(
+            r"\W+", "_", name), text, "-shared")
+            for name, text in sources.items()}
+        libs = {"kernel": sw_cuda._banded_kernel()}
+        for name, fut in built.items():
+            lib = ctypes.CDLL(fut.result())
+            lib.sw_banded_launch.restype = ctypes.c_int
+            lib.sw_banded_launch.argtypes = (
+                libs["kernel"].sw_banded_launch.argtypes)
+            libs[name] = lib
+    x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                                  read_len=(140, 150), hap_len=(180, 224))
+    args = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    pair = tuple(args) + tuple(sw_cuda.band_bounds(*args))
+    xr = args[0].repeat_interleave(2, dim=0)
+    yr = args[1][torch.stack([args[2], args[3]], 1).reshape(-1).long()]
+    ident = torch.arange(len(xr), dtype=torch.int32, device="cuda")
+    rows = (xr, yr, ident, None) + pair[4:]
+    route = sw_cuda.PAIR_ROUTES.index("packed")
+    for mode, a, per_read in (("pair", pair, 2), ("rows", rows, 1)):
+        times = collections.defaultdict(list)
+        order = list(libs)
+        out = {}
+        for who in ["kernel"] + order[1:] + order[1:][::-1] + ["kernel"]:
+            times[who].append(time_cuda(lambda: banded_ab_launch(
+                libs[who], a, per_read, per_read == 2, route), 3, 15))
+            out[who] = banded_ab_launch(libs[who], a, per_read,
+                                        per_read == 2, route)
+        ms = {who: statistics.median(t) for who, t in times.items()}
+        log(f"timing sw_banded split, {mode}: kernel {ms['kernel']:.4f} ms; "
+            + "; ".join(f"{name} {ms[name]:.4f} ms (the kernel "
+                        f"{ms['kernel'] - ms[name]:+.4f}; "
+                        + ("exact" if torch.equal(out[name], out["kernel"])
+                           else "output differs") + ")"
+                        for name in order[1:]))
+        for name in order[1:]:
+            if "strip" in name or "blocks" in name:
+                if not torch.equal(out[name], out["kernel"]):
+                    fail(f"sw_banded's {name} variant is not exact")
+
+
+def banded_ab_launch(lib, args, per_read, codes, last_int):
+    """One launch of a build of csrc/sw_banded.cu (`lib`, its C entry
+    typed as sw_cuda types it) on `args` (reads, haplotype rows, idx_ref,
+    idx_alt or None, jlo, jhi on the card) over all its reads, its scratch
+    the larger of a scalar route's and the packed route's; last_int: the
+    entry's int before the stream (a route's code; in a parent checkout
+    without routes, its 64-bit-word flag). Returns its output."""
     import torch
 
     from vartrix_tpu_torch.ops import sw_cuda
 
-    with open(os.path.join(baseline, "vartrix_tpu_torch", "csrc",
-                           "band_build.cu")) as f:
-        src = f.read()
-    pr11 = "kSharedRows" not in src
-    if pr11:
-        fill = "  __syncwarp();\n  // band fill over this problem's rows"
-        src = src.replace(fill, f"  {CHAIN_DP_END}\n" + fill, 1)
-    sources = {"baseline_band_build": src,
-               "baseline_chain_dp_probe": probe_source(src),
-               "baseline_lookups_probe": probe_source(src, lookups=True)}
+    reads, hap, ir, ia, jlo, jhi = args
+    R, lx = reads.shape
+    ly = hap.shape[1]
+    P = per_read * R
+    scratch = torch.empty(max(8 * ly * P, 16 * (-(-ly // 2) * 2)
+                              * -(-P // 2)), dtype=torch.uint8,
+                          device="cuda")
+    if codes:
+        out = torch.empty(R, dtype=torch.int8, device="cuda")
+    else:
+        out = torch.empty((per_read, R), dtype=torch.int32, device="cuda")
+    err = lib.sw_banded_launch(
+        reads.data_ptr(), R, lx, hap.data_ptr(), ly, ir.data_ptr(),
+        None if ia is None else ia.data_ptr(), per_read, jlo.data_ptr(),
+        jhi.data_ptr(), P, None if codes else out.data_ptr(), R,
+        out.data_ptr() if codes else None, scratch.data_ptr(), last_int,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"a sw_banded build did not launch ({err})")
+    return out
+
+
+def band_ab(baseline, rng, probes):
+    """band_build and sw_banded of this checkout against those of
+    `baseline` (the root of another checkout, e.g. the parent commit's,
+    unpacked by git archive) in one process: both sources built here, then
+    at the main bucket shape in both per_read modes, in turns (baseline,
+    this, this, baseline). band_build: each build's split (band_split, a
+    part whose mark the baseline lacks not measured), the bounds equal.
+    sw_banded on those bounds: the baseline's build given 0 for its last
+    int (the 32-bit scratch word of a parent without routes, the packed
+    route of one with them) against this checkout's path route, the
+    outputs equal."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    sources = {}
+    for name, stem in (("band_build", "band_build.cu"),
+                       ("sw_banded", "sw_banded.cu")):
+        with open(os.path.join(baseline, "vartrix_tpu_torch", "csrc",
+                               stem)) as f:
+            sources[f"baseline_{name}"] = f.read()
+    src = sources["baseline_band_build"]
+    sources.update(baseline_chain_dp_probe=probe_source(src),
+                   baseline_lookups_probe=probe_source(src, lookups=True))
     with ThreadPoolExecutor(len(sources)) as ex:
         built = {name: ex.submit(build_probe, name, text, "-shared")
                  for name, text in sources.items() if text}
@@ -3008,12 +3374,15 @@ def band_ab(baseline, rng, probes):
              for part, name in (("dp", "baseline_chain_dp_probe"),
                                 ("lookups", "baseline_lookups_probe"))})
     n_instr, n, hist = max(sass_loops(
-        built["baseline_band_build"],
-        "chain_kernelIiE" if pr11 else CHAIN_KERNEL_SYMBOL, CHAIN_OPCODE),
+        built["baseline_band_build"], CHAIN_KERNEL_SYMBOL, CHAIN_OPCODE),
         key=lambda t: (t[1], -t[0]))
     log(f"baseline {baseline}: its chain DP step issues "
         f"{n_instr / n * 32 / 64:.4f} SASS instructions per candidate ("
         + _describe(n_instr, n, hist) + ")")
+    base_dp = ctypes.CDLL(built["baseline_sw_banded"])
+    base_dp.sw_banded_launch.restype = ctypes.c_int
+    base_dp.sw_banded_launch.argtypes = (
+        sw_cuda._banded_kernel().sw_banded_launch.argtypes)
     new = (sw_cuda._band_kernel(),
            {"dp": sw_cuda.bind_band_library(probes[0]),
             "lookups": sw_cuda.bind_band_library(probes[1])})
@@ -3031,9 +3400,8 @@ def band_ab(baseline, rng, probes):
         splits = collections.defaultdict(list)
         for who in ("baseline", "this", "this", "baseline"):
             lib, probe = base if who == "baseline" else new
-            route = ("global" if who == "baseline" and pr11
-                     else sw_cuda.band_route(MAIN_LX))
-            splits[who].append(band_split(lib, probe, a, index, route,
+            splits[who].append(band_split(lib, probe, a, index,
+                                          sw_cuda.band_route(MAIN_LX),
                                           expect))
         for who in ("baseline", "this"):
             split = {k: (None if splits[who][0][k] is None else
@@ -3046,14 +3414,34 @@ def band_ab(baseline, rng, probes):
             f"{out[(mode, 'baseline')]['total']:.4f} ms in turns ("
             + ", ".join(f"{s['total']:.4f}" for who in ("baseline", "this")
                         for s in splits[who]) + "), bounds equal")
+        dp_args = tuple(a) + tuple(expect)
+        per_read = 2 if mode == "pair" else 1
+        route = sw_cuda.PAIR_ROUTES.index(sw_cuda.banded_route(MAIN_LX,
+                                                              MAIN_LY))
+        run = {"baseline": lambda: banded_ab_launch(
+                   base_dp, dp_args, per_read, mode == "pair", 0),
+               "this": lambda: banded_ab_launch(
+                   sw_cuda._banded_kernel(), dp_args, per_read,
+                   mode == "pair", route)}
+        if not torch.equal(run["baseline"](), run["this"]()):
+            fail(f"sw_banded's output differs from the baseline's ({mode})")
+        times = collections.defaultdict(list)
+        for who in ("baseline", "this", "this", "baseline"):
+            times[who].append(time_cuda(run[who], 3, 15))
+        dp = {who: statistics.median(t) for who, t in times.items()}
+        out[(mode, "sw_banded")] = dp
+        log(f"sw_banded {mode}: this checkout {dp['this']:.4f} ms against "
+            f"the baseline's {dp['baseline']:.4f} ms in turns ("
+            + ", ".join(f"{t:.4f}" for who in ("baseline", "this")
+                        for t in times[who]) + "), outputs equal")
     return out
 
 
 def band_main(baseline=None):
-    """The band builder alone (`python3 chip_smoke.py --band [--baseline
+    """The banded kernels alone (`python3 chip_smoke.py --band [--baseline
     DIR]`): phases 1 and 2, the SASS counts, phase 3's banded families,
-    phase 4's banded timing with band_build's split and, given a baseline
-    checkout, band_ab against it."""
+    phase 4's banded timing with band_build's and sw_banded's splits and,
+    given a baseline checkout, band_ab against it."""
     import numpy as np
     import torch
 
@@ -3069,6 +3457,7 @@ def band_main(baseline=None):
     phase_banded_equality(rng, threads)
     log(f"banded equality done at {time.perf_counter() - t_start:.1f}s")
     phase_banded_timing(rng, sass, clock_hz, threads, paths[6:9])
+    banded_split(rng)
     if baseline:
         band_ab(baseline, rng, paths[6:9])
     log(f"total {time.perf_counter() - t_start:.1f}s")
@@ -3196,13 +3585,13 @@ def main():
         if "scalar_ms" in t:
             record["kernels"][-1]["word32_route_ms"] = t["scalar_ms"]
         if "split" in t:  # band_build: its steps (band_split), mappings
-            record["kernels"][-1].update(
-                split_ms=t["split"], mapping_ms=t["mapping_ms"],
-                share_of_bound=t["share_of_bound"])
+            record["kernels"][-1].update(split_ms=t["split"],
+                                         mapping_ms=t["mapping_ms"])
+        if "share_of_bound" in t:
+            record["kernels"][-1]["share_of_bound"] = t["share_of_bound"]
             if t["share_of_bound"] is None:
-                record["kernels"][-1]["share_of_bound_note"] = (
-                    "its DP step issues fewer instructions per candidate "
-                    "than the bound charges: the bound is no lower bound")
+                record["kernels"][-1]["share_of_bound_note"] = t[
+                    "share_note"]
         if name == "sw_pair":  # its plain-row route on the Python host
             record["kernels"][-1]["python_host_launches"] = {
                 k: v for k, v in launches.items() if k.startswith("sw_pair_")}

@@ -8,11 +8,12 @@ CPU tensors go to the plain version (ops/sw_torch.py, ops/sw_banded_torch.py,
 ops/band_torch.py), the only case in which it is taken. Each kernel is
 built with nvcc at first use and bound through ctypes; a failed build or
 launch raises. The kernels take every (lx, ly): sw_pair runs two problems
-per thread in 16-bit halves while min(lx, ly) <= 32,767 and one per thread
-past that, with a 32-bit scratch word up to 65,535 and a 64-bit one from
-65,536 (pair_route); sw_banded switches to its 64-bit word from 65,536
-(wide_word). Every wrapper cuts a launch into ranges whose scratch fits a
-fixed budget (read_ranges, band_ranges) and writes them into one output.
+per thread in 16-bit halves while min(lx, ly) <= 32,767, sw_banded while
+ly <= 32,767, and both one per thread past that, with a 32-bit scratch
+word up to min(lx, ly) = 65,535 and a 64-bit one from 65,536
+(pair_route, banded_route). Every wrapper cuts a launch into ranges
+whose scratch fits a fixed budget (read_ranges, band_ranges) and writes
+them into one output.
 
 The banded kernels, like sw_pair, take two layouts of problems: a read's
 (ref, alt) pair (per_read 2, the native host path) and plain rows, read p
@@ -61,8 +62,8 @@ BAND_SCRATCH_BYTES = 1 << 30
 # ranges of reads
 DP_SCRATCH_BYTES = 1 << 30
 # read rows per strip of csrc/sw_pair.cu (kStrip; kPackedStrip on its
-# packed route) and csrc/sw_banded.cu (kStrip): a read within one strip
-# needs no scratch
+# packed route) and csrc/sw_banded.cu (kStrip, every route): a read within
+# one strip needs no scratch
 PAIR_STRIP = 16
 PACKED_STRIP = 32
 BANDED_STRIP = 8
@@ -193,36 +194,61 @@ def pair_scratch_bytes(lx: int, ly: int, route: str) -> int:
     return (8 if route == "word64" else 4) * ly
 
 
-def dp_scratch_bytes(lx: int, ly: int, banded: bool = False) -> int:
-    """Scratch bytes of one (read, haplotype) problem of sw_pair on its
-    route (pair_scratch_bytes) or, banded, of sw_banded (2 ly words: two
-    buffers alternate by strip); none when the read fits one strip."""
-    if not banded:
-        return pair_scratch_bytes(lx, ly, pair_route(lx, ly))
+def banded_route(lx: int, ly: int) -> str:
+    """sw_banded's route for a bucket of lx x ly: "packed" while ly <=
+    32,767, which keeps in an int16 half both an H (at most min(lx, ly))
+    and a column's offset from a strip's first column, what the packed
+    route compares with its rows' bounds; past that sw_pair's scalar
+    routes by min(lx, ly) (pair_route)."""
+    if ly <= PACKED_MAX:
+        return "packed"
+    return "word64" if wide_word(lx, ly) else "word32"
+
+
+def banded_scratch_bytes(lx: int, ly: int, route: str) -> int:
+    """Scratch bytes of one problem of sw_banded on `route`: two buffers
+    of, per column, half a packed pair's 8-byte (G, F) words over ly
+    rounded up to PACKED_COLS columns, or the scalar (H, F + 6) word, 4
+    bytes or, on word64, 8; none when the read fits one strip."""
     if lx <= BANDED_STRIP:
         return 0
-    return 2 * ly * (8 if wide_word(lx, ly) else 4)
+    if route == "packed":
+        return 8 * (-(-ly // PACKED_COLS) * PACKED_COLS)
+    return 2 * ly * (8 if route == "word64" else 4)
+
+
+def dp_scratch_bytes(lx: int, ly: int, banded: bool = False) -> int:
+    """Scratch bytes of one (read, haplotype) problem of sw_pair
+    (pair_scratch_bytes) or, banded, of sw_banded (banded_scratch_bytes),
+    each on its route for (lx, ly)."""
+    if not banded:
+        return pair_scratch_bytes(lx, ly, pair_route(lx, ly))
+    return banded_scratch_bytes(lx, ly, banded_route(lx, ly))
 
 
 def read_ranges(n_reads: int, lx: int, ly: int, per_read: int, budget: int,
                 banded: bool = False,
                 route: Optional[str] = None) -> List[Tuple[int, int]]:
-    """Read ranges [r0, r1) of one DP launch, in order and covering every
-    read, each taking at most `budget` bytes of scratch (per_read problems
-    per read, dp_scratch_bytes each, or sw_pair's pair_scratch_bytes on a
-    given route) unless one read alone takes more. sw_pair's packed route
-    runs an odd range of plain rows (per_read == 1) with one empty problem
-    more (pair_scratch_problems)."""
-    need = per_read * (dp_scratch_bytes(lx, ly, banded) if route is None
-                       else pair_scratch_bytes(lx, ly, route))
+    """Read ranges [r0, r1) of one launch of sw_pair or, banded, sw_banded,
+    in order and covering every read, each taking at most `budget` bytes of
+    scratch (per_read problems per read, pair_scratch_bytes or
+    banded_scratch_bytes each on `route`, by default the kernel's route for
+    (lx, ly)) unless one read alone takes more. The packed routes run an
+    odd range of plain rows (per_read == 1) with one empty problem more
+    (pair_scratch_problems)."""
+    if route is None:
+        route = (banded_route if banded else pair_route)(lx, ly)
+    need = per_read * (banded_scratch_bytes if banded
+                       else pair_scratch_bytes)(lx, ly, route)
     step = max(1, budget // need) if need else max(1, n_reads)
     return [(r0, min(r0 + step, n_reads)) for r0 in range(0, n_reads, step)]
 
 
 def pair_scratch_problems(ranges: List[Tuple[int, int]], per_read: int,
                           route: str) -> int:
-    """Problems that sw_pair's scratch for `ranges` holds: those of the
-    largest range (the first), rounded up to pairs on the packed route."""
+    """Problems that sw_pair's or sw_banded's scratch for `ranges` holds:
+    those of the largest range (the first), rounded up to pairs on the
+    packed route."""
     n = (ranges[0][1] - ranges[0][0]) * per_read
     return n + n % 2 if route == "packed" else n
 
@@ -357,10 +383,14 @@ def _check_problems(reads: torch.Tensor, idx_ref: torch.Tensor,
 
 def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
                    idx_ref: torch.Tensor, idx_alt: Optional[torch.Tensor],
-                   jlo: torch.Tensor, jhi: torch.Tensor,
-                   codes: bool) -> torch.Tensor:
+                   jlo: torch.Tensor, jhi: torch.Tensor, codes: bool,
+                   route: Optional[str] = None) -> torch.Tensor:
     """Validate, allocate and launch the banded kernel on the current
-    stream; plain rows (per_read 1) when idx_alt is None."""
+    stream; plain rows (per_read 1) when idx_alt is None. route: one of
+    PAIR_ROUTES, sw_banded's three by the same codes (default
+    banded_route(lx, ly)); the kernel refuses a route that cannot hold
+    the bucket (packed past ly = 32,767, word32 past min(lx, ly) =
+    65,535)."""
     global BANDED_LAUNCHES, BANDED_ROW_LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
@@ -377,13 +407,17 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
         raise ValueError(f"jlo and jhi must be [{lx}, {P}] (one "
                          "column per problem), got "
                          f"{list(jlo.shape)} and {list(jhi.shape)}")
+    route = banded_route(lx, ly) if route is None else route
+    if route not in PAIR_ROUTES:
+        raise ValueError(f"route must be one of {PAIR_ROUTES}, got {route!r}")
     lib = _banded_kernel()
     out, scores_ptr, codes_ptr = _output(R, per_read, codes, dev)
-    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES, banded=True)
+    ranges = read_ranges(R, lx, ly, per_read, DP_SCRATCH_BYTES, banded=True,
+                         route=route)
     if not ranges:
         return out
-    scratch = _scratch(per_read * (ranges[0][1] - ranges[0][0]),
-                       dp_scratch_bytes(lx, ly, True), dev)
+    scratch = _scratch(pair_scratch_problems(ranges, per_read, route),
+                       banded_scratch_bytes(lx, ly, route), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     alt_ptr = None if idx_alt is None else idx_alt.data_ptr()
     for r0, r1 in ranges:
@@ -398,9 +432,9 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
             scores_ptr + 4 * r0 if scores_ptr else None, R,
             codes_ptr + r0 if codes_ptr else None,
             None if scratch is None else scratch.data_ptr(),
-            int(wide_word(lx, ly)), stream)
+            PAIR_ROUTES.index(route), stream)
         if err != 0:
-            raise RuntimeError("sw_banded kernel launch failed: "
+            raise RuntimeError(f"sw_banded kernel launch failed ({route}): "
                                + lib.sw_banded_error_string(err).decode())
         if per_read == 2:
             BANDED_LAUNCHES += 1
@@ -411,40 +445,47 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
 
 def banded_pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
                        idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-                       jlo: torch.Tensor, jhi: torch.Tensor) -> torch.Tensor:
+                       jlo: torch.Tensor, jhi: torch.Tensor, *,
+                       route: Optional[str] = None) -> torch.Tensor:
     """int32 [2, R] banded (ref, alt) scores. reads: uint8 [R, lx] (pad 0);
     hap_mat: uint8 [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of
     hap_mat; jlo, jhi: int32 [lx, 2R] band bounds of each read row, problem
-    2r the read's ref and 2r + 1 its alt (band_bounds)."""
+    2r the read's ref and 2r + 1 its alt (band_bounds). route (the kernel
+    only): one of PAIR_ROUTES in place of banded_route(lx, ly), for
+    measurements."""
     if reads.device.type == "cpu":
         return sw_banded_torch.banded_pair_scores(reads, hap_mat, idx_ref,
                                                   idx_alt, jlo, jhi)
-    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, False)
+    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, False,
+                          route)
 
 
 def banded_pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
                       idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-                      jlo: torch.Tensor, jhi: torch.Tensor) -> torch.Tensor:
+                      jlo: torch.Tensor, jhi: torch.Tensor, *,
+                      route: Optional[str] = None) -> torch.Tensor:
     """int8 [R] call codes of each read's banded (ref, alt) scores.
     Arguments as banded_pair_scores."""
     if reads.device.type == "cpu":
         return sw_banded_torch.banded_pair_calls(reads, hap_mat, idx_ref,
                                                  idx_alt, jlo, jhi)
-    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, True)
+    return _launch_banded(reads, hap_mat, idx_ref, idx_alt, jlo, jhi, True,
+                          route)
 
 
 def banded_scores(x: torch.Tensor, y: torch.Tensor, jlo: torch.Tensor,
-                  jhi: torch.Tensor) -> torch.Tensor:
+                  jhi: torch.Tensor, *,
+                  route: Optional[str] = None) -> torch.Tensor:
     """Plain rows: uint8 x [B, lx] (pad 0) against uint8 y [B, ly] (pad 1)
     within int32 jlo/jhi [lx, B] band bounds -> int32 [B] banded scores;
     the banded kernel with one problem per read and identity haplotype
-    indices (K4's `_sw_banded_pairs` entry)."""
+    indices (K4's `_sw_banded_pairs` entry). route: as banded_pair_scores."""
     if x.device.type == "cpu":
         return sw_banded_torch.banded_scores(x, y, jlo, jhi)
     if y.shape[0] != x.shape[0]:
         raise ValueError("x and y must have the same number of rows")
     ident = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
-    return _launch_banded(x, y, ident, None, jlo, jhi, False)[0]
+    return _launch_banded(x, y, ident, None, jlo, jhi, False, route)[0]
 
 
 def _plain_banded_batch_scores(x: torch.Tensor,
