@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (two launches of one warp each, a minute or more, on streams of their
      own beside the rest of this phase; every other check waits on the
      default stream only). band_index: the k-mer
-     index of every banded family's haplotypes against its plain version.
+     index of every banded family's haplotypes against its plain version
+     on both its routes where they hold the width (shared, on chip, up to
+     ly = 8,197; global, merge passes in device memory, any width), and on
+     families of its own: rows at the shared route's limit and one byte
+     past it (the shared route refused there), rows of one repeated base.
      band_build: its int32
      bounds against the plain version and the host reference on the
      families of the banded path (main, bending bands, full bands, empty
@@ -38,7 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      buffer, forced by its width threshold; the 65,602-base reads take the
      work buffer by width), and against the host reference on one
      homopolymer locus at ly=4032 whose matches need several chain-pass
-     ranges and on the 65,602-base reads. sw_banded: scores and codes on
+     ranges and on the 65,602-base reads. After each kernel call the
+     default stream is synchronised, so that a fault names that kernel,
+     family and route. sw_banded: scores and codes on
      those bounds against its plain version, on each of its routes that
      holds the family's width (packed, word32, word64). On every family of
      the banded path, both banded kernels' plain-row mode (read p against
@@ -72,7 +78,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its DP steps (beside their time at full issue) and the traceback with
      the band fill) and its chain DP at 32, 16 and 8 lanes per problem
      (the mapping probe, held to the kernel's own DP); band_index on the
-     bucket's haplotype matrix, and torch.sort of the same keys; both
+     bucket's haplotype matrix: the kernel alone (100 back-to-back calls
+     on buffers allocated once, and replayed from a CUDA graph), the
+     wrapper, an empty kernel's launch (the floor no single launch
+     beats), torch.sort of the same keys, and both routes by width; both
      banded kernels' plain-row mode on the same 131,072 problems as plain
      rows, in turns with their pair mode, with its bound;
   5. end to end: a seeded 500,000-read dataset (generated in a worker
@@ -82,8 +91,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      only, for time); matrices must agree,
      each mode's kernels must have launched on its cuda runs and never on
      the torch runs, the other mode's never, the index once per shape
-     bucket, and the host band reference never. The full consensus cuda
-     run writes a --profile-dir trace, read for the card's idle share in
+     bucket, and the host band reference never; band_index timed on each
+     bucket's haplotype matrix of the banded cuda runs. The full
+     consensus cuda run writes a --profile-dir trace, read for the card's
+     idle share in
      `score` (vartrix_tpu_torch.utils.trace); it must hold every sw_pair
      launch. The CLI entry (python -m vartrix_tpu_torch) runs on a small
      dataset in both modes;
@@ -138,11 +149,26 @@ alone: phases 1 and 2, the SASS counts, phase 3's banded families and
 phase 4's banded timing, with sw_banded's split (banded_split: its
 packed route against copies without scratch traffic and with one
 haplotype pair for all threads, and with other strip heights and blocks
-per SM); with --baseline, the band_build.cu and
+per SM) and band_index's (index_split: the kernel against copies without
+its sort and with other thread and row mappings, and the wrapper's host
+steps); with --baseline, the band_build.cu and
 sw_banded.cu of the checkout at DIR (e.g. the parent commit's, unpacked
 by `git archive` under build/) built beside this one and timed against
 them in turns at the main shape in both per_read modes, bounds and
-scores held equal.
+scores held equal; band_index too, the kernel alone and the wrapper, on
+the main family's haplotypes and on phase 5's bucket (its dataset
+generated in a worker, one banded run), the indexes held equal.
+
+`python3 chip_smoke.py --sanitize` runs phase 3's exactness checks
+(phase_equality, phase_banded_equality with band_index's families,
+check_long_hap, check_banded_limit, check_wide_banded) under
+compute-sanitizer's memcheck, racecheck, initcheck and synccheck, a
+child process each, at cut sizes (the main family 4,096 reads, the
+100 kb locus 64, the homopolymer locus 16; sw_pair's 1 G-cell families
+and wide launches left out: sw_pair and sw_banded run every route on
+the other families); only this repository's kernels instrumented. It
+fails where a tool reports an error (named by kernel, family and route),
+or is missing or refuses the device.
 """
 
 import collections
@@ -247,6 +273,21 @@ __global__ void load_probe(const int* __restrict__ slots, int n, int a,
 }
 '''
 KEY_LOOKUP_INSTR = 7
+# An empty kernel, launched n times from one C call: one launch of it on a
+# stream, timed as a wrapper is, is the least time a single launch takes
+# there (band_index's launch floor).
+EMPTY_SRC = r'''
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(int n, void* stream) {
+  for (int i = 0; i < n; ++i) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+'''
 # The DP kernels' bound charges each needed cell the least update of the
 # recurrence on this card: two problems per 32-bit word in 16x2 DPX, as
 # one loop step updates two packed cells from loaded inputs (read and
@@ -633,6 +674,27 @@ RSS_WRAPPER = (
     "    print('peak_rss_kb', resource.getrusage(resource.RUSAGE_SELF)"
     ".ru_maxrss, 'start_rss_kb', start, 'run_peak_rss_kb',\n"
     "          max(peak, rss()), file=sys.stderr)\n")
+
+
+# --sanitize: phase 3's checks in a child process under compute-sanitizer,
+# which sets CHIP_SMOKE_SANITIZE to the tool's name there; cut sizes
+SANITIZE = os.environ.get("CHIP_SMOKE_SANITIZE", "")
+SANITIZE_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
+SANITIZE_MARK = "@@sanitize"
+# only this repository's kernels are instrumented (mangled names hold
+# these): PyTorch's own kernels, the plain versions', run unchecked
+SANITIZE_FILTER = tuple(
+    arg for name in ("sw_pair", "sw_banded", "12index_kernel",
+                     "19index_shared_kernel", "12count_kernel",
+                     "12chain_kernel")
+    for arg in ("--kernel-name", f"kns={name}"))
+if SANITIZE:
+    MAIN_READS = 4096  # the main family: 8,192 problems, not 131,072
+LONG_HAP_READS = 64 if SANITIZE else 512  # the 100 kb locus
+HOMOPOLYMER_READS = 16 if SANITIZE else 128
+# the homopolymer locus's chain-pass scratch budget: its matches need 2+
+# ranges (16 reads: ~210 MB of match scratch)
+HOMOPOLYMER_BUDGET = (64 << 20) if SANITIZE else None
 
 
 def log(msg):
@@ -1110,8 +1172,8 @@ def registers(library, symbol):
 
 def phase_build():
     """Builds every library at once; returns the three kernels' paths, the
-    two SASS probes', the DPX rate probe's and those of band_build's split:
-    the chain DP, lookups and mapping probes."""
+    two SASS probes', the DPX rate probe's, those of band_build's split
+    (the chain DP, lookups and mapping probes) and the empty kernel's."""
     from vartrix_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1126,13 +1188,14 @@ def phase_build():
                 lambda: build_probe("lookups_probe", product_probe_source(
                     _build.BAND_BUILD_SRC, lookups=True), "-shared"),
                 lambda: build_probe("mapping_probe", MAPPING_PROBE_SRC,
-                                    "-shared"))
+                                    "-shared"),
+                lambda: build_probe("empty_probe", EMPTY_SRC, "-shared"))
     with ThreadPoolExecutor(max_workers=len(builders)) as ex:
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
         f"band_bounds.cpp + cramio.cpp + the candidate, cell, DPX rate, "
-        f"chain DP, lookups and mapping probes in "
+        f"chain DP, lookups, mapping and empty kernel probes in "
         f"{time.perf_counter() - t0:.2f}s")
     log("  libcramio: " + _build.build_log(paths[5]).splitlines()[0])
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -1313,9 +1376,10 @@ def phase_equality(rng):
             for route in sw_cuda.PAIR_ROUTES:
                 got = sw_cuda.pair_scores(reads, ht, irt, iat,
                                           read_lens=lens, route=route)
+                after("sw_pair", name, f"{form} {route} scores")
                 codes = sw_cuda.pair_calls(reads, ht, irt, iat,
                                            read_lens=lens, route=route)
-                sync()
+                after("sw_pair", name, f"{form} {route} codes")
                 err = int((got - plain).abs().max().item()) if len(x) else 0
                 bad = int((codes != plain_codes).sum().item())
                 worst = max(worst, err)
@@ -1330,22 +1394,25 @@ def phase_equality(rng):
         if name == "ly_4032":
             wide = (x, haps, ir, ia)
     # the packed route's edge, then near the 32-bit scratch word's limit:
-    # against the plain version and the known scores
-    for fam, route in ((packed_limit_family, "packed"),
-                       (near_limit_family, "word32")):
+    # against the plain version and the known scores (not under
+    # --sanitize: 1 G cells a problem; every family above runs on every
+    # route there)
+    for fam, route in () if SANITIZE else (
+            (packed_limit_family, "packed"), (near_limit_family, "word32")):
         x, haps, ir, ia, known = fam(rng)
         if sw_cuda.pair_route(x.shape[1], haps.shape[1]) != route:
             fail(f"{fam.__name__} does not take the {route} route")
         xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
         t0 = time.perf_counter()
         got = sw_cuda.pair_scores(xt, ht, irt, iat)
+        after("sw_pair", fam.__name__, route)
         codes = None
         if route == "packed":
             xp, lens = pack2(x)
             codes = sw_cuda.pair_calls(torch.from_numpy(xp).cuda(), ht, irt,
                                        iat, read_lens=torch.from_numpy(
                                            lens).cuda())
-        sync()
+            after("sw_pair", fam.__name__, "2-bit codes")
         dt = time.perf_counter() - t0
         plain = sw_torch.pair_scores(xt, ht, irt, iat)
         got_l, plain_l = got.T.tolist(), plain.T.tolist()
@@ -1363,6 +1430,7 @@ def phase_equality(rng):
     xt = torch.from_numpy(x).cuda()
     yt = torch.from_numpy(haps[ir]).cuda()
     got = sw_cuda.batch_scores(xt, yt)
+    after("sw_pair", "k6_rows", sw_cuda.pair_route(x.shape[1], yt.shape[1]))
     exp = sw_torch.sw_scores(xt, yt)
     err = int((got - exp).abs().max().item())
     log(f"sw_pair k6_rows     dense B={len(x)} ly={haps.shape[1]}: "
@@ -1442,25 +1510,108 @@ def sync():
     torch.cuda.current_stream().synchronize()
 
 
+AFTER_CALLS = 0  # after() calls so far
+
+
+def after(kernel, family, route=""):
+    """Waits for the default stream's work right after a kernel call of
+    phase 3, so that a fault during that call is reported here, naming the
+    kernel, its family and route, and not at a later launch (the wrappers'
+    cudaGetLastError reports any earlier kernel's sticky error; the wide
+    sw_pair launches on their own streams are the one exception, and are
+    named). Under --sanitize it also prints the marker that attributes the
+    tool's reports since the previous marker to this call."""
+    import torch
+
+    global AFTER_CALLS
+    AFTER_CALLS += 1
+    try:
+        torch.cuda.current_stream().synchronize()
+    except RuntimeError as e:
+        fail(f"CUDA error after {kernel} on {family}"
+             + (f" ({route})" if route else "")
+             + f" (or in the wide sw_pair launches beside phase 3): {e}")
+    if SANITIZE:
+        print(f"{SANITIZE_MARK}\t{kernel}\t{family}\t{route or '-'}",
+              flush=True)
+
+
+def index_routes(ly):
+    """band_index's routes that hold rows of width ly: the one
+    index_route picks first, then the other where it holds them."""
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    own = sw_cuda.index_route(ly)
+    return [own] + [r for r in sw_cuda.INDEX_ROUTES
+                    if r != own and (r == "global"
+                                     or ly <= sw_cuda.INDEX_SHARED_LY)]
+
+
 def check_index(name, ht):
-    """band_index on the card against its plain version: (the index,
-    entries that differ)."""
+    """band_index on the card against its plain version, on each route
+    that holds the width (forced by argument), only the entries the
+    kernel writes compared (the first hap_len - 5 of each row); past the
+    shared route's width, that route must refuse. Returns (the index of
+    the path's route, entries that differ)."""
     import torch
 
     from vartrix_tpu_torch.ops import band_torch, sw_cuda
 
-    got = sw_cuda.band_index(ht)
     exp = band_torch.band_index(ht)
     n = (exp.hap_len.long() - 5).clamp_min(0)
     valid = torch.arange(ht.shape[1], device=ht.device)[None, :] < n[:, None]
-    bad = (int((got.hap_len != exp.hap_len).sum().item())
-           + int((got.keys != exp.keys)[valid].sum().item())
-           + int((got.pos != exp.pos)[valid].sum().item()))
+    res, bad, own = [], 0, None
+    for route in index_routes(ht.shape[1]):
+        got = sw_cuda.band_index(ht, route=route)
+        after("band_index", name, route)
+        miss = (int((got.hap_len != exp.hap_len).sum().item())
+                + int((got.keys[valid] != exp.keys[valid]).sum().item())
+                + int((got.pos[valid] != exp.pos[valid]).sum().item()))
+        own = got if own is None else own
+        bad += miss
+        res.append(f"{route} {miss}")
+    if ht.shape[1] > sw_cuda.INDEX_SHARED_LY:
+        try:
+            sw_cuda.band_index(ht, route="shared")
+        except RuntimeError:
+            res.append("shared refused")
+        else:
+            fail(f"band_index's shared route took rows of {ht.shape[1]} "
+                 "bytes")
     log(f"band_index {name:11s} H={ht.shape[0]} ly={ht.shape[1]}: "
-        f"{int(n.sum().item())} keys, mismatches vs plain {bad}")
+        f"{int(n.sum().item())} keys, mismatches vs plain: "
+        + "; ".join(res))
     if bad:
         fail(f"band_index disagrees with the plain version on {name}")
-    return got, bad
+    return own, bad
+
+
+def index_families(rng):
+    """band_index's own families (both banded kernels take the index as
+    given): rows at the shared route's limit (ly = INDEX_SHARED_LY, the
+    first row with all 8,192 keys a row can have there) and one byte past
+    it (the global route alone, the shared refused); rows of one repeated
+    base, where every key is equal and only the j order is left, at the
+    main width and at the limit. Returns the most mismatches."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    worst = 0
+    limit = sw_cuda.INDEX_SHARED_LY
+    for name, ly, alphabet, rows in (
+            ("index_limit", limit, b"ACGT", 6),
+            ("index_past", limit + 1, b"ACGT", 6),
+            ("one_base", MAIN_LY, b"A", 64),
+            ("one_base_lim", limit, b"A", 3)):
+        haps = rng.choice(np.frombuffer(alphabet, np.uint8), (rows, ly))
+        lens = rng.integers(0, ly + 1, rows)
+        lens[0] = ly
+        haps[np.arange(ly)[None, :] >= lens[:, None]] = 1
+        _, bad = check_index(name, torch.from_numpy(haps).cuda())
+        worst = max(worst, bad)
+    return worst
 
 
 def phase_banded_equality(rng, threads):
@@ -1499,6 +1650,7 @@ def phase_banded_equality(rng, threads):
         index, bad = check_index(name, ht)
         index_worst = max(index_worst, bad)
         got = sw_cuda.band_bounds(xt, ht, irt, iat, index)
+        after("band_build", name, sw_cuda.band_route(x.shape[1]))
         plain = band_torch.band_bounds(xt, ht, irt, iat)
         sync()
         bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
@@ -1514,6 +1666,9 @@ def phase_banded_equality(rng, threads):
                 sw_cuda.BAND_SHARED_LX = rows_lx
                 try:
                     other = sw_cuda.band_bounds(xt, ht, irt, iat, index)
+                    after("band_build", name,
+                          f"{'64' if wide_keys == 0 else '32'}-bit keys "
+                          f"{'global' if rows_lx == 0 else 'shared'}")
                 finally:
                     sw_cuda.BAND_WIDE_KEYS_LX, sw_cuda.BAND_SHARED_LX = saved
                 nw = sum(int((w != g).sum().item())
@@ -1566,16 +1721,22 @@ def phase_banded_equality(rng, threads):
     # scratch budget. The plain builder's loop over match ranks would take
     # minutes here, so the bounds are held against the host reference
     # only; sw_banded against its plain version as above.
-    x, haps, ir, ia = homopolymer_locus(rng)
+    x, haps, ir, ia = homopolymer_locus(rng, HOMOPOLYMER_READS)
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     matches = match_counts(xt, ht, irt, iat)
-    ranges = sw_cuda.band_ranges(torch.cumsum(matches, 0).cpu().numpy(),
-                                 x.shape[1], sw_cuda.BAND_SCRATCH_BYTES,
-                                 sw_cuda.band_route(x.shape[1]))
-    t0 = time.perf_counter()
-    got = sw_cuda.band_bounds(xt, ht, irt, iat)
-    sync()
-    dt = time.perf_counter() - t0
+    saved = sw_cuda.BAND_SCRATCH_BYTES
+    sw_cuda.BAND_SCRATCH_BYTES = HOMOPOLYMER_BUDGET or saved
+    try:
+        ranges = sw_cuda.band_ranges(
+            torch.cumsum(matches, 0).cpu().numpy(), x.shape[1],
+            sw_cuda.BAND_SCRATCH_BYTES, sw_cuda.band_route(x.shape[1]))
+        t0 = time.perf_counter()
+        got = sw_cuda.band_bounds(xt, ht, irt, iat)
+        after("band_index, band_build", "homopolymer")
+        dt = time.perf_counter() - t0
+        budget = sw_cuda.BAND_SCRATCH_BYTES
+    finally:
+        sw_cuda.BAND_SCRATCH_BYTES = saved
     host = sw_native.band_bounds(x, haps, ir, ia, threads)
     bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
     log(f"band_build homopolymer R={len(x)} lx={x.shape[1]} "
@@ -1583,7 +1744,7 @@ def phase_banded_equality(rng, threads):
         f"{int(matches.sum())} ({int(matches.max())} per problem at most, "
         f"{12 * int(matches.sum()) / 2**30:.2f} GiB of match scratch), "
         f"{len(ranges)} chain-pass ranges of at most "
-        f"{sw_cuda.BAND_SCRATCH_BYTES / 2**30:.2f} GiB; {dt:.3f} s")
+        f"{budget / 2**30:.2f} GiB; {dt:.3f} s")
     if bad:
         fail("band_build disagrees with the host reference on the "
              "homopolymer locus")
@@ -1594,6 +1755,7 @@ def phase_banded_equality(rng, threads):
     worst = max(worst, check_wide_banded(rng, threads))
     worst = max(worst, check_banded_limit(rng, threads))
     err, bad = check_long_hap(rng, threads)
+    index_worst = max(index_worst, index_families(rng))
     return (max(band_worst, bad), max(worst, err), index_worst, rows_band,
             rows_worst)
 
@@ -1615,16 +1777,21 @@ def check_rows(name, x, haps, ir, host):
     ident = torch.arange(len(x), dtype=torch.int32, device="cuda")
     n0 = (sw_cuda.BAND_ROW_LAUNCHES, sw_cuda.BANDED_ROW_LAUNCHES)
     got = sw_cuda.band_bounds(xt, yt, ident)
+    after("band_index, band_build", name, "plain rows")
     plain = band_torch.band_bounds(xt, yt, ident)
     sync()
     bad = sum(int((g.cpu().numpy() != h).sum()) + int((g != q).sum().item())
               for g, h, q in zip(got, host, plain))
     whole = sw_cuda.banded_batch_scores(xt, yt)
+    after("band_index, band_build, sw_banded", name,
+          "plain rows, banded_batch_scores")
     ref = sw_banded_torch.banded_scores(xt, yt, *got)
     sync()
-    errs = {route: int((sw_cuda.banded_scores(xt, yt, *got, route=route)
-                        - ref).abs().max().item()) if len(x) else 0
-            for route in banded_routes(x.shape[1], haps.shape[1])}
+    errs = {}
+    for route in banded_routes(x.shape[1], haps.shape[1]):
+        sc = sw_cuda.banded_scores(xt, yt, *got, route=route)
+        after("sw_banded", name, f"plain rows {route}")
+        errs[route] = int((sc - ref).abs().max().item()) if len(x) else 0
     err = max(*errs.values(), int((whole - ref).abs().max().item())
               if len(x) else 0)
     n = (sw_cuda.BAND_ROW_LAUNCHES - n0[0], sw_cuda.BANDED_ROW_LAUNCHES - n0[1])
@@ -1651,7 +1818,7 @@ def check_wide_banded(rng, threads):
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     t0 = time.perf_counter()
     got = sw_cuda.band_bounds(xt, ht, irt, iat)
-    sync()
+    after("band_index, band_build", "wide")
     dt = time.perf_counter() - t0
     host = sw_native.band_bounds(x, haps, ir, ia, threads)
     bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
@@ -1680,7 +1847,7 @@ def check_long_hap(rng, threads):
 
     from vartrix_tpu_torch.ops import band_torch, sw_cuda, sw_native, sw_torch
 
-    x, haps, ir, ia = long_hap_family(rng)
+    x, haps, ir, ia = long_hap_family(rng, LONG_HAP_READS)
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     saved = sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES
     sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 16 << 20
@@ -1690,7 +1857,7 @@ def check_long_hap(rng, threads):
         t0 = time.perf_counter()
         index, _ = check_index("long_hap", ht)
         got = sw_cuda.band_bounds(xt, ht, irt, iat, index)
-        sync()
+        after("band_build", "long_hap", sw_cuda.band_route(x.shape[1]))
         dt = time.perf_counter() - t0
         n_band = sw_cuda.BAND_LAUNCHES - n0[2]
         args = (xt, ht, irt, iat) + tuple(got)
@@ -1698,7 +1865,8 @@ def check_long_hap(rng, threads):
         n_banded = (sw_cuda.BANDED_LAUNCHES - n0[1]) // (
             2 * len(banded_routes(x.shape[1], haps.shape[1])))
         pair = sw_cuda.pair_scores(xt, ht, irt, iat)
-        sync()
+        after("sw_pair", "long_hap",
+              sw_cuda.pair_route(x.shape[1], haps.shape[1]))
         n_pair = sw_cuda.LAUNCHES - n0[0]
     finally:
         sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES = saved
@@ -1761,8 +1929,9 @@ def check_banded(name, args):
     res = {}
     for route in banded_routes(args[0].shape[1], args[1].shape[1]):
         sc = sw_cuda.banded_pair_scores(*args, route=route)
+        after("sw_banded", name, f"{route} scores")
         codes = sw_cuda.banded_pair_calls(*args, route=route)
-        sync()
+        after("sw_banded", name, f"{route} codes")
         res[route] = (int((sc - ref).abs().max().item()),
                       int((codes != calls).sum().item()))
     log(f"sw_banded {name:11s}: " + "; ".join(
@@ -1787,8 +1956,8 @@ def check_banded_limit(rng, threads):
     x, haps, ir, ia, _ = packed_limit_family(rng)
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     got = sw_cuda.band_bounds(xt, ht, irt, iat)
+    after("band_index, band_build", "packed_limit")
     host = sw_native.band_bounds(x, haps, ir, ia, threads)
-    sync()
     bad = sum(int((g.cpu().numpy() != h).sum()) for g, h in zip(got, host))
     log(f"band_build packed_limit R={len(x)} lx={x.shape[1]} "
         f"ly={haps.shape[1]}: bound mismatches vs host {bad}")
@@ -1801,9 +1970,11 @@ def check_banded_limit(rng, threads):
         fail("the packed limit family is not at the packed route's edge")
     y = ht[irt.long()]
     lo, hi = (b[:, 0::2].contiguous() for b in got)
-    errs = {route: int((sw_cuda.banded_scores(xt, y, lo, hi, route=route)
-                        - ref[0]).abs().max().item())
-            for route in banded_routes(x.shape[1], haps.shape[1])}
+    errs = {}
+    for route in banded_routes(x.shape[1], haps.shape[1]):
+        sc = sw_cuda.banded_scores(xt, y, lo, hi, route=route)
+        after("sw_banded", "packed_limit", f"plain rows {route}")
+        errs[route] = int((sc - ref[0]).abs().max().item())
     log("plain rows packed_limit: sw_banded max|err| " + ", ".join(
         f"{r} {e}" for r, e in errs.items()))
     if any(errs.values()):
@@ -1979,7 +2150,7 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
     traceback with the band fill, and the lookups probe (also without its
     DP steps) cuts the DP into its lookups and its DP steps; and the chain
     DP under other problem-to-lane mappings (mapping_split). probes: the
-    paths of the chain DP, lookups and mapping probes.
+    paths of the chain DP, lookups, mapping and empty kernel probes.
 
     Where band_build's DP step issues fewer instructions per candidate,
     with its upkeep, than the bound charges a candidate, the bound is no
@@ -2060,7 +2231,7 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
            f"{cand * step / issue_per_s * 1e3:.4f} ms, so the bound is no "
            "lower bound here and no share of it is reported")
         + "; library_ms null: no PyTorch call builds a chained band")
-    dp_probe, lookups_probe, mapping_probe = probes
+    dp_probe, lookups_probe, mapping_probe, _ = probes
     split = band_split(sw_cuda._band_kernel(),
                        {"dp": sw_cuda.bind_band_library(dp_probe),
                         "lookups": sw_cuda.bind_band_library(lookups_probe)},
@@ -2107,7 +2278,7 @@ def phase_banded_timing(rng, sass, clock_hz, threads, probes):
                      share_of_bound=(rb_bound / band_rows_ms if bound_holds
                                      else None),
                      share_note=band["share_note"])
-    index_timing = time_index(args[1], issue_per_s)
+    index_timing = time_index(args[1], issue_per_s, probes[3], rng)
     # sw_banded on the kernel's bounds: its packed route (the path's) and
     # its 32-bit scalar route, in turns, in both modes; plain rows also in
     # an order that pairs unrelated problems in a packed thread
@@ -2413,41 +2584,225 @@ def mapping_split(path, lib, args, index, warmup=2, reps=10):
     return out
 
 
-def time_index(ht, issue_per_s):
-    """band_index on one bucket's haplotype matrix: kernel, plain version,
-    and torch.sort of the same keys (the library call that sorts them;
-    the port never calls it). Bound: the haplotype bytes read once and
-    the index (12 bytes per key, 4 per row length) written once, against
-    one placement per key and merge pass (n ceil(log2 n) per row) at the
-    issue rate."""
+def index_launcher(lib, ht, route, routes=True):
+    """One launch of `lib`'s band_index_build (a build of band_build.cu) on
+    the haplotype matrix ht into buffers allocated here once (with scratch
+    on the global route, and for a build without routes, whose only route
+    merges in device memory): (launch(stream=None), the index).
+    routes: whether the build takes a route code."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    H, ly = ht.shape
+    index, tmp = sw_cuda.index_buffers(
+        H, ly, route if routes else "global", ht.device)
+    head = [ht.data_ptr(), H, ly, index.keys.data_ptr(),
+            index.pos.data_ptr(), *(None if t is None else t.data_ptr()
+                                    for t in tmp),
+            index.hap_len.data_ptr()]
+    if routes:
+        head.append(sw_cuda.INDEX_ROUTES.index(route))
+    default = torch.cuda.current_stream().cuda_stream
+
+    def launch(stream=None):
+        err = lib.band_index_build(*head,
+                                   default if stream is None else stream)
+        if err:
+            fail(f"a band_index build did not launch ({route}): "
+                 + lib.band_build_error_string(err).decode())
+
+    return launch, index
+
+
+def per_launch(launch, n=100, warmup=2, reps=7):
+    """The median time of n back-to-back calls of launch(), over n (ms)."""
+    def run():
+        for _ in range(n):
+            launch()
+
+    return time_cuda(run, warmup, reps) / n
+
+
+def graph_per_launch(launch, n=100):
+    """n launches captured in one CUDA graph, replayed: the device's time
+    per launch without the host's calls between them (ms)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            launch(stream)
+    return time_cuda(graph.replay, 2, 7) / n
+
+
+def launch_floor(path):
+    """The empty kernel (EMPTY_SRC, built at `path`): (one launch through
+    its C entry with CUDA events around the call, as the wrapper is timed;
+    per launch of 100 back-to-back calls, as the kernel alone is) in ms."""
+    import torch
+
+    lib = ctypes.CDLL(path)
+    lib.empty_launch.restype = ctypes.c_int
+    lib.empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if lib.empty_launch(1, stream):
+            fail("the empty kernel did not launch")
+
+    return time_cuda(launch, 3, 25), per_launch(launch)
+
+
+def index_keys(ht):
+    """The 6-mer keys a band_index of ht sorts: per row max(hap_len - 5,
+    0), a numpy array."""
+    import numpy as np
+
+    from vartrix_tpu_torch.ops import band_torch
+
+    return np.maximum(band_torch.true_lengths(ht, 1).cpu().numpy() - 5, 0)
+
+
+def index_times(ht, floor):
+    """band_index on ht, this checkout's path route: (the kernel alone,
+    100 back-to-back band_index_build calls on buffers allocated once,
+    per call; the same launches replayed from a CUDA graph; the wrapper,
+    sw_cuda.band_index as the path calls it, CUDA events around one
+    call), in ms, logged beside the shape, the key count and the launch
+    floor (launch_floor's pair)."""
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    route = sw_cuda.index_route(ht.shape[1])
+    launch, _ = index_launcher(sw_cuda._band_kernel(), ht, route)
+    kernel_ms = per_launch(launch)
+    graph_ms = graph_per_launch(launch)
+    ms = time_cuda(lambda: sw_cuda.band_index(ht), 3, 15)
+    n = index_keys(ht)
+    log(f"timing band_index H={ht.shape[0]} ly={ht.shape[1]} ({route} "
+        f"route; {int((n > 0).sum())} rows with keys, {int(n.sum())} keys): "
+        f"kernel alone {kernel_ms:.4f} ms (100 back-to-back calls; "
+        f"{graph_ms:.4f} from a CUDA graph), wrapper {ms:.4f} ms; an empty "
+        f"kernel {floor[0]:.4f} ms in one call, {floor[1]:.4f} back to back")
+    return kernel_ms, graph_ms, ms
+
+
+def index_route_widths(rng):
+    """Both band_index routes' kernel alone, in turns (shared, global,
+    global, shared), on rows of the main family's shape up to the shared
+    route's limit: where the shared route stops being the faster, its
+    limit would move there. Returns {ly: {route: ms}}."""
     import numpy as np
     import torch
 
-    from vartrix_tpu_torch.ops import band_torch, sw_cuda
+    from vartrix_tpu_torch.ops import sw_cuda
 
-    ms = time_cuda(lambda: sw_cuda.band_index(ht), 3, 15)
+    lib = sw_cuda._band_kernel()
+    out = {}
+    for H, ly in ((2048, MAIN_LY), (512, 1029), (128, 4032),
+                  (64, sw_cuda.INDEX_SHARED_LY)):
+        haps = rng.choice(np.frombuffer(b"ACGT", np.uint8), (H, ly))
+        lens = rng.integers(ly * 4 // 5, ly + 1, H)
+        haps[np.arange(ly)[None, :] >= lens[:, None]] = 1
+        ht = torch.from_numpy(haps).cuda()
+        runs = {r: index_launcher(lib, ht, r)[0] for r in sw_cuda.INDEX_ROUTES}
+        times = collections.defaultdict(list)
+        for route in ("shared", "global", "global", "shared"):
+            times[route].append(per_launch(runs[route], 20, 1, 5))
+        out[ly] = {r: statistics.median(t) for r, t in times.items()}
+        log(f"timing band_index routes H={H} ly={ly}: kernel alone shared "
+            f"{out[ly]['shared']:.4f} ms, global {out[ly]['global']:.4f} ms "
+            "in turns (" + ", ".join(f"{r} {t:.4f}" for r, ts in times.items()
+                                     for t in ts) + ")")
+    return out
+
+
+def time_index(ht, issue_per_s, empty_path, rng):
+    """band_index on one bucket's haplotype matrix: the kernel alone and
+    from a CUDA graph, the wrapper, the empty-launch floor, the plain
+    version, and torch.sort of the same keys (the library call that sorts
+    them; the port never calls it); then both routes by width
+    (index_route_widths). Bound: the haplotype bytes read once and the
+    index (12 bytes per key, 4 per row length) written once, against one
+    placement per key and merge pass (n ceil(log2 n) per row) at the issue
+    rate; its share of the kernel alone and of the wrapper."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import band_torch
+
+    floor = launch_floor(empty_path)
+    kernel_ms, graph_ms, ms = index_times(ht, floor)
     plain_ms = time_cuda(lambda: band_torch.band_index(ht), 1, 3)
     hap_len = band_torch.true_lengths(ht, 1)
     keys = band_torch.kmer_keys(ht, hap_len, (1 << 63) - 1)
     library_ms = time_cuda(lambda: torch.sort(keys, dim=1, stable=True),
                            3, 15)
-    n = np.maximum(hap_len.cpu().numpy() - 5, 0)
+    n = index_keys(ht)
     passes = np.ceil(np.log2(np.maximum(n, 1)))
     ops_ms = float((n * passes).sum()) / issue_per_s * 1e3
     nbytes = ht.numel() + 12 * int(n.sum()) + 4 * ht.shape[0]
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    log(f"timing band_index H={ht.shape[0]} ly={ht.shape[1]} "
-        f"({int((n > 0).sum())} rows with keys, {int(n.sum())} keys): "
-        f"{ms:.4f} ms; plain {plain_ms:.3f} ms; torch.sort of the keys "
+    log(f"timing band_index plain {plain_ms:.3f} ms; torch.sort of the keys "
         f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes / "
         f"{HBM_BYTES_PER_S:.3g} B/s = {bytes_ms:.4f} ms; "
         f"{int((n * passes).sum())} placements / {issue_per_s:.6g} "
-        f"instructions/s = {ops_ms:.4f} ms), {100 * bound_ms / ms:.1f} % of "
-        "the kernel's time")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        f"instructions/s = {ops_ms:.4f} ms): "
+        f"{100 * bound_ms / kernel_ms:.1f} % of the kernel alone, "
+        f"{100 * bound_ms / ms:.1f} % of the wrapper; the launch floor "
+        f"{floor[0]:.4f} ms alone is {floor[0] / bound_ms:.1f}x the bound")
+    widths = index_route_widths(rng)
+    return dict(ms=ms, kernel_ms=kernel_ms, graph_ms=graph_ms,
+                launch_floor_ms=floor[0], launch_floor_back_to_back_ms=floor[1],
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=library_ms)
+                library_ms=library_ms,
+                share_of_bound=bound_ms / kernel_ms,
+                wrapper_share_of_bound=bound_ms / ms,
+                route_ms={str(k): v for k, v in widths.items()})
+
+
+def time_buckets(mats, empty_path):
+    """index_times on each haplotype matrix the path's band_index was given
+    (recording_index), with the launch floor; returns [{H, ly, keys,
+    kernel_ms, graph_ms, ms}]."""
+    floor = launch_floor(empty_path)
+    out = []
+    for ht in mats:
+        kernel_ms, graph_ms, ms = index_times(ht, floor)
+        out.append(dict(H=ht.shape[0], ly=ht.shape[1],
+                        keys=int(index_keys(ht).sum()), kernel_ms=kernel_ms,
+                        graph_ms=graph_ms, ms=ms))
+    return out
+
+
+class recording_index:
+    """Within it, every sw_cuda.band_index call keeps a copy of the
+    haplotype matrix it was given (in .mats), in order."""
+
+    def __enter__(self):
+        from vartrix_tpu_torch.ops import sw_cuda
+
+        self.mats, self._own = [], sw_cuda.band_index
+
+        def band_index(hap_mat, **kw):
+            self.mats.append(hap_mat.clone())
+            return self._own(hap_mat, **kw)
+
+        sw_cuda.band_index = band_index
+        return self
+
+    def __exit__(self, *exc):
+        from vartrix_tpu_torch.ops import sw_cuda
+
+        sw_cuda.band_index = self._own
 
 
 def read_mtx(path):
@@ -2527,8 +2882,10 @@ def phase_e2e(work, data):
     zeroed just before each (path, backend) group and read just after;
     returns the launches of the full path's cuda runs (sw_pair) and the
     banded path's (sw_banded, band_build, band_index), the matrices'
-    paths by (sw_mode, mode, backend) and each run's kernel_launches by
-    tag. The host band reference must never be called."""
+    paths by (sw_mode, mode, backend), each run's kernel_launches by tag
+    and the haplotype matrices band_index was given (recording_index), one
+    per shape bucket of each banded cuda run. The host band reference must
+    never be called."""
     from vartrix_tpu_torch import driver
     from vartrix_tpu_torch.ops import sw_cuda, sw_native
 
@@ -2560,6 +2917,7 @@ def phase_e2e(work, data):
     launches = {}
     n_buckets = {}
     run_launches = {}
+    index_mats = []
     for sw_mode in own:
         for be, be_args in backends.items():
             sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
@@ -2583,8 +2941,10 @@ def phase_e2e(work, data):
                 if profiled:
                     argv += ["--profile-dir", prof]
                 t0 = time.perf_counter()
-                driver._main(argv)
+                with recording_index() as rec:
+                    driver._main(argv)
                 dt = time.perf_counter() - t0
+                index_mats += rec.mats
                 with open(mj) as f:
                     payload = json.load(f)
                 if profiled:
@@ -2645,7 +3005,7 @@ def phase_e2e(work, data):
              "sw_banded": launches["banded", "cuda"]["sw_banded"],
              "band_build": launches["banded", "cuda"]["band_build"],
              "band_index": launches["banded", "cuda"]["band_index"]},
-            outs, run_launches)
+            outs, run_launches, index_mats)
 
 
 def phase_cram_python(work, data, py, outs, run_launches):
@@ -3240,6 +3600,129 @@ BANDED_VARIANTS = {
 }
 
 
+# Copies of band_build.cu for band_index's split (index_split): its sort
+# skipped (a probe: the rows come out unsorted), and other thread and row
+# mappings of the shared route (exact: the same index).
+INDEX_VARIANTS = {
+    "no sort": [("  while (size < n) size <<= 1;\n", "")],
+    "4 keys a thread": [("constexpr int kSortPerThread = 8;",
+                         "constexpr int kSortPerThread = 4;")],
+    "4 rows a block": [("constexpr int kSortWarpRows = 8;",
+                        "constexpr int kSortWarpRows = 4;")],
+    "16 rows a block": [("constexpr int kSortWarpRows = 8;",
+                         "constexpr int kSortWarpRows = 16;")],
+}
+
+
+def variant_sources(path, variants):
+    """{name: the source at `path` with each of the variant's (old, new)
+    edits}; a variant whose old text is not in the source exactly once is
+    logged and left out."""
+    with open(path) as f:
+        src = f.read()
+    sources = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            text = text.replace(old, new) if text.count(old) == 1 else None
+            if text is None:
+                break
+        if text is None:
+            log(f"no {name} variant of {os.path.basename(path)} (a line is "
+                "missing from the source), not measured")
+        else:
+            sources[name] = text
+    return sources
+
+
+def index_split(rng):
+    """band_index's shared route at the main shape against its variants
+    (INDEX_VARIANTS), the kernel alone and from a CUDA graph in turns
+    (kernel, variants, variants reversed, kernel): the sort's share and
+    other mappings (those must give the kernel's index); then the
+    wrapper's host time by step (time.perf_counter over 200 calls each,
+    the host alone, not the device): checks, the buffers as three
+    allocations (the wrapper's) and as one allocation cut into views, the
+    stream lookup, the C call, and the whole wrapper."""
+    import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import _build, sw_cuda
+
+    sources = variant_sources(_build.BAND_BUILD_SRC, INDEX_VARIANTS)
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = {name: ex.submit(build_probe, "index_" + re.sub(
+            r"\W+", "_", name), text, "-shared")
+            for name, text in sources.items()}
+        libs = {"kernel": sw_cuda._band_kernel()}
+        libs.update({name: sw_cuda.bind_band_library(f.result())
+                     for name, f in built.items()})
+    _, haps, _, _ = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
+                                read_len=(140, 150), hap_len=(180, 224))
+    ht = torch.from_numpy(haps).cuda()
+    runs = {who: index_launcher(lib, ht, "shared") for who, lib in
+            libs.items()}
+    for launch, _ in runs.values():
+        launch()
+    torch.cuda.synchronize()
+    order = list(libs)
+    times = collections.defaultdict(list)
+    graphs = collections.defaultdict(list)
+    for who in ["kernel"] + order[1:] + order[1:][::-1] + ["kernel"]:
+        times[who].append(per_launch(runs[who][0]))
+        graphs[who].append(graph_per_launch(runs[who][0]))
+    ms = {who: statistics.median(t) for who, t in times.items()}
+    gms = {who: statistics.median(t) for who, t in graphs.items()}
+    n = torch.from_numpy(index_keys(ht)).cuda()
+    valid = torch.arange(ht.shape[1], device="cuda")[None, :] < n[:, None]
+    own = runs["kernel"][1]
+    exact = {who: torch.equal(idx.keys[valid], own.keys[valid])
+             and torch.equal(idx.pos[valid], own.pos[valid])
+             and torch.equal(idx.hap_len, own.hap_len)
+             for who, (_, idx) in runs.items()}
+    log(f"timing band_index split H={ht.shape[0]} ly={ht.shape[1]}: kernel "
+        f"alone {ms['kernel']:.4f} ms ({gms['kernel']:.4f} from a graph); "
+        + "; ".join(f"{name} {ms[name]:.4f} ms ({gms[name]:.4f}; the kernel "
+                    f"{gms['kernel'] - gms[name]:+.4f} from a graph; "
+                    + ("exact" if exact[name] else "index differs") + ")"
+                    for name in order[1:]))
+    for name in order[1:]:
+        if name != "no sort" and not exact[name]:
+            fail(f"band_index's {name} variant is not exact")
+    dev = ht.device
+    H, ly = ht.shape
+    launch = runs["kernel"][0]
+
+    def host_us(fn, reps=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    def views():
+        buf = torch.empty(3 * H * ly + H, dtype=torch.int32, device=dev)
+        return (buf[:2 * H * ly].view(torch.int64).view(H, ly),
+                buf[2 * H * ly:3 * H * ly].view(H, ly), buf[3 * H * ly:])
+
+    steps = {
+        "checks": lambda: sw_cuda._check(ht, "hap_mat", torch.uint8, 2, dev),
+        "three allocations (the wrapper's)": lambda: sw_cuda.index_buffers(
+            H, ly, "shared", dev),
+        "one buffer cut into views": views,
+        "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "the C call": launch,
+        "wrapper": lambda: sw_cuda.band_index(ht),
+    }
+    host = {name: host_us(fn) for name, fn in steps.items()}
+    log("timing band_index wrapper, host us per call: " + "; ".join(
+        f"{name} {us:.2f}" for name, us in host.items()))
+    return dict(ms=ms, graph_ms=gms, host_us=host)
+
+
 def banded_split(rng):
     """sw_banded's packed route at the main shape against its variants
     (BANDED_VARIANTS), each a single launch over the whole chunk, in turns
@@ -3251,20 +3734,7 @@ def banded_split(rng):
 
     from vartrix_tpu_torch.ops import _build, sw_cuda
 
-    with open(_build.BANDED_KERNEL_SRC) as f:
-        src = f.read()
-    sources = {}
-    for name, edits in BANDED_VARIANTS.items():
-        text = src
-        for old, new in edits:
-            text = text.replace(old, new) if text.count(old) == 1 else None
-            if text is None:
-                break
-        if text is None:
-            log(f"timing sw_banded split: no {name} variant (a line is "
-                "missing from the source), not measured")
-        else:
-            sources[name] = text
+    sources = variant_sources(_build.BANDED_KERNEL_SRC, BANDED_VARIANTS)
     with ThreadPoolExecutor(len(sources)) as ex:
         built = {name: ex.submit(build_probe, "banded_" + re.sub(
             r"\W+", "_", name), text, "-shared")
@@ -3340,9 +3810,94 @@ def banded_ab_launch(lib, args, per_read, codes, last_int):
     return out
 
 
-def band_ab(baseline, rng, probes):
-    """band_build and sw_banded of this checkout against those of
-    `baseline` (the root of another checkout, e.g. the parent commit's,
+def baseline_index_wrapper(lib, ht):
+    """The band_index wrapper of a checkout whose index build has no routes
+    (ops/sw_cuda._launch_index as of 0b121ac), on `lib`, a build of that
+    checkout's band_build.cu: the checks, five allocations (hap_len by a
+    zero fill), then the build."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    dev = ht.device
+    sw_cuda._check(ht, "hap_mat", torch.uint8, 2, dev)
+    H, ly = ht.shape
+    keys = torch.empty((H, ly), dtype=torch.int64, device=dev)
+    pos = torch.empty((H, ly), dtype=torch.int32, device=dev)
+    hap_len = torch.zeros(H, dtype=torch.int32, device=dev)
+    tmp_keys = torch.empty_like(keys)
+    tmp_pos = torch.empty_like(pos)
+    err = lib.band_index_build(
+        ht.data_ptr(), H, ly, keys.data_ptr(), pos.data_ptr(),
+        tmp_keys.data_ptr(), tmp_pos.data_ptr(), hap_len.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        fail(f"the baseline's band_index did not launch ({err})")
+
+
+def index_ab(lib, routes, mats, floor):
+    """band_index of this checkout against `lib`, a build of another
+    checkout's band_build.cu (routes: whether its build takes a route
+    code), on each haplotype matrix of `mats`, in turns (baseline, this,
+    this, baseline): the kernel alone (per_launch, on buffers allocated
+    once; the baseline on its own route for the width, its global merge
+    passes where it has no routes) and, for a baseline without routes,
+    the wrappers (baseline_index_wrapper against sw_cuda.band_index); the
+    indexes held equal. floor: launch_floor's pair. Returns [{H, ly, keys,
+    kernel: {who: ms}, wrapper: {who: ms}}]."""
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    out = []
+    for ht in mats:
+        route = sw_cuda.index_route(ht.shape[1])
+        launches, indexes = {}, {}
+        for who, (l, r) in (("baseline", (lib, routes)),
+                            ("this", (sw_cuda._band_kernel(), True))):
+            launches[who], indexes[who] = index_launcher(l, ht, route, r)
+            launches[who]()
+        torch.cuda.synchronize()
+        n = torch.from_numpy(index_keys(ht)).to(ht.device)
+        valid = torch.arange(ht.shape[1], device=ht.device)[None, :] < \
+            n[:, None]
+        a, b = indexes["baseline"], indexes["this"]
+        if not (torch.equal(a.hap_len, b.hap_len)
+                and torch.equal(a.keys[valid], b.keys[valid])
+                and torch.equal(a.pos[valid], b.pos[valid])):
+            fail(f"band_index differs from the baseline's (H={ht.shape[0]}, "
+                 f"ly={ht.shape[1]})")
+        wrappers = {"this": lambda: sw_cuda.band_index(ht)}
+        if not routes:
+            wrappers["baseline"] = lambda: baseline_index_wrapper(lib, ht)
+        kernel, wrapper = (collections.defaultdict(list),
+                           collections.defaultdict(list))
+        for who in ("baseline", "this", "this", "baseline"):
+            kernel[who].append(per_launch(launches[who]))
+            if who in wrappers:
+                wrapper[who].append(time_cuda(wrappers[who], 3, 15))
+        res = dict(H=ht.shape[0], ly=ht.shape[1], keys=int(n.sum().item()),
+                   kernel={w: statistics.median(t) for w, t in kernel.items()},
+                   wrapper={w: statistics.median(t)
+                            for w, t in wrapper.items()})
+        out.append(res)
+        log(f"band_index H={res['H']} ly={res['ly']} ({res['keys']} keys, "
+            f"{route} route here): kernel alone, this checkout "
+            f"{res['kernel']['this']:.4f} ms against the baseline's "
+            f"{res['kernel']['baseline']:.4f} in turns ("
+            + ", ".join(f"{who} {t:.4f}" for who in ("baseline", "this")
+                        for t in kernel[who]) + "); wrapper "
+            + ", ".join(f"{who} {res['wrapper'][who]:.4f} ms ("
+                        + ", ".join(f"{t:.4f}" for t in wrapper[who]) + ")"
+                        for who in ("baseline", "this") if who in wrapper)
+            + f"; an empty kernel {floor[0]:.4f} ms in one call, "
+            f"{floor[1]:.4f} back to back; indexes equal")
+    return out
+
+
+def band_ab(baseline, rng, probes, buckets):
+    """band_build, sw_banded and band_index of this checkout against those
+    of `baseline` (the root of another checkout, e.g. the parent commit's,
     unpacked by git archive) in one process: both sources built here, then
     at the main bucket shape in both per_read modes, in turns (baseline,
     this, this, baseline). band_build: each build's split (band_split, a
@@ -3350,7 +3905,8 @@ def band_ab(baseline, rng, probes):
     sw_banded on those bounds: the baseline's build given 0 for its last
     int (the 32-bit scratch word of a parent without routes, the packed
     route of one with them) against this checkout's path route, the
-    outputs equal."""
+    outputs equal. band_index (index_ab) on the main family's haplotypes
+    and on `buckets`, the matrices of phase 5's banded run."""
     import torch
 
     from vartrix_tpu_torch.ops import sw_cuda
@@ -3379,6 +3935,11 @@ def band_ab(baseline, rng, probes):
     log(f"baseline {baseline}: its chain DP step issues "
         f"{n_instr / n * 32 / 64:.4f} SASS instructions per candidate ("
         + _describe(n_instr, n, hist) + ")")
+    routes = re.search(r"band_index_build\([^)]*int route", src) is not None
+    if not routes:  # a build whose index has its merge passes only
+        base[0].band_index_build.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_int] + \
+            [ctypes.c_void_p] * 6
     base_dp = ctypes.CDLL(built["baseline_sw_banded"])
     base_dp.sw_banded_launch.restype = ctypes.c_int
     base_dp.sw_banded_launch.argtypes = (
@@ -3434,6 +3995,8 @@ def band_ab(baseline, rng, probes):
             f"the baseline's {dp['baseline']:.4f} ms in turns ("
             + ", ".join(f"{t:.4f}" for who in ("baseline", "this")
                         for t in times[who]) + "), outputs equal")
+    out["band_index"] = index_ab(base[0], routes, [args[1]] + buckets,
+                                 launch_floor(probes[3]))
     return out
 
 
@@ -3454,14 +4017,43 @@ def band_main(baseline=None):
     sass = phase_sass(paths)
     threads = os.cpu_count() or 1
     rng = np.random.default_rng(2024)
-    phase_banded_equality(rng, threads)
-    log(f"banded equality done at {time.perf_counter() - t_start:.1f}s")
-    phase_banded_timing(rng, sass, clock_hz, threads, paths[6:9])
-    banded_split(rng)
-    if baseline:
-        band_ab(baseline, rng, paths[6:9])
+    work = os.path.join(HERE, "build", "chip_smoke_band")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            e2e_data = pool.submit(generate_e2e, work)
+            phase_banded_equality(rng, threads)
+            log(f"banded equality done at "
+                f"{time.perf_counter() - t_start:.1f}s")
+            phase_banded_timing(rng, sass, clock_hz, threads, paths[6:10])
+            banded_split(rng)
+            index_split(rng)
+            data, _ = e2e_data.result()
+        if baseline:
+            band_ab(baseline, rng, paths[6:10], e2e_index_mats(work, data))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(card)
+
+
+def e2e_index_mats(work, data):
+    """The haplotype matrices band_index is given in phase 5's banded
+    consensus run with --backend cuda (one per shape bucket), from one
+    such run here (recording_index)."""
+    from vartrix_tpu_torch import driver
+
+    out = os.path.join(work, "banded_consensus.mtx")
+    with recording_index() as rec:
+        driver._main(["-v", data["vcf"], "-b", data["bam"], "-f",
+                      data["fasta"], "-c", data["barcodes"], "-o", out,
+                      "--sw-mode", "banded", "-s", "consensus", "--backend",
+                      "cuda", "--threads", str(os.cpu_count() or 1)])
+    log(f"e2e banded consensus: band_index given "
+        + ", ".join(f"[{m.shape[0]}, {m.shape[1]}]" for m in rec.mats))
+    return rec.mats
 
 
 def main():
@@ -3506,6 +4098,8 @@ def main():
              rows_worst) = phase_banded_equality(rng, threads)
             worst = max(worst, finish_wide())
             done("banded equality")
+            log(f"phase 3: {AFTER_CALLS} kernel calls, each followed by a "
+                "synchronisation of the default stream (no fault)")
             data, gen_s = e2e_data.result()
             log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in "
                 "a worker process, during phase 3)")
@@ -3513,15 +4107,16 @@ def main():
             timing = phase_timing(rng, sass, clock_hz, paths[5])
             (band_timing, banded_timing, index_timing, band_rows_timing,
              banded_rows_timing) = phase_banded_timing(rng, sass, clock_hz,
-                                                       threads, paths[6:9])
+                                                       threads, paths[6:10])
             done("timing")
             t0 = time.perf_counter()
             sparse, sparse_s = sparse_data.result()
             log(f"sparse: generated {sparse['n_reads']} reads in "
                 f"{sparse_s:.1f}s (in a second worker process, from phase 3; "
                 f"waited {time.perf_counter() - t0:.1f}s after phase 4)")
-            launches, outs, run_launches = phase_e2e(work, data)
+            launches, outs, run_launches, index_mats = phase_e2e(work, data)
             done("e2e")
+            index_timing["buckets"] = time_buckets(index_mats, paths[9])
             phase_cli(work)
             phase_sparse(work, sparse)
             done("sparse")
@@ -3587,6 +4182,12 @@ def main():
         if "split" in t:  # band_build: its steps (band_split), mappings
             record["kernels"][-1].update(split_ms=t["split"],
                                          mapping_ms=t["mapping_ms"])
+        if name == "band_index":  # the kernel alone, the launch floor
+            record["kernels"][-1].update(
+                {k: t[k] for k in ("kernel_ms", "graph_ms", "launch_floor_ms",
+                                   "launch_floor_back_to_back_ms",
+                                   "wrapper_share_of_bound", "route_ms",
+                                   "buckets")})
         if "share_of_bound" in t:
             record["kernels"][-1]["share_of_bound"] = t["share_of_bound"]
             if t["share_of_bound"] is None:
@@ -3604,8 +4205,147 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def sanitizer_path():
+    """compute-sanitizer of the CUDA toolkit (PATH, else CUDA_HOME/bin), or
+    None."""
+    for cand in (shutil.which("compute-sanitizer"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "compute-sanitizer")):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def sanitizer_report(text):
+    """A compute-sanitizer run of sanitize_child, read from its output:
+    (the ERROR SUMMARY's count, or None where it printed none; per
+    after() marker, in order, [kernel, family, route, the reports printed
+    since the marker before]; reports after the last marker; the report
+    blocks, each its header line and the lines that follow it)."""
+    summary, calls, blocks, n = None, [], [], 0
+    quiet = ("COMPUTE-SANITIZER", "ERROR SUMMARY", "RACECHECK SUMMARY",
+             "LEAK SUMMARY", "Target application")
+    for line in text.splitlines():
+        m = re.match(r"========= ERROR SUMMARY: (\d+) error", line)
+        if m:
+            summary = int(m.group(1))
+        if line.startswith(SANITIZE_MARK + "\t"):
+            calls.append(line.split("\t")[1:4] + [n])
+            n = 0
+        elif (line.startswith("========= ") and line[10:11] not in ("", " ")
+              and not line[10:].startswith(quiet)):
+            n += 1
+            blocks.append([line])
+        elif line.startswith("=========  ") and blocks:
+            blocks[-1].append(line)
+    return summary, calls, n, blocks
+
+
+def sanitize_child():
+    """Phase 3's exactness checks (phase_equality, phase_banded_equality
+    with its check_index families, check_long_hap, check_banded_limit and
+    check_wide_banded), at the cut sizes SANITIZE sets, for sanitize_main
+    under compute-sanitizer; after() marks each kernel call."""
+    import numpy as np
+
+    sys.path.insert(0, HERE)
+    rng = np.random.default_rng(2024)
+    phase_equality(rng)
+    phase_banded_equality(rng, os.cpu_count() or 1)
+    log("sanitize child: every check passed")
+
+
+def sanitize_main():
+    """`python3 chip_smoke.py --sanitize`: sanitize_child under each tool of
+    SANITIZE_TOOLS (compute-sanitizer, the CUDA toolkit's), in a process of
+    its own each, all at once, with PyTorch's caching allocator off (every
+    tensor its own allocation, so memcheck sees each bound); only this
+    repository's kernels instrumented. Every tool's error count is read;
+    a count above 0, a child that fails or a tool that is missing fails
+    the mode, naming the kernel, family and route of each report."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    tool_path = sanitizer_path()
+    if tool_path is None:
+        fail("compute-sanitizer is missing (neither on PATH nor in "
+             "CUDA_HOME/bin): --sanitize cannot run")
+    sys.path.insert(0, HERE)
+    t_start = time.perf_counter()
+    card, _ = phase_card()
+    phase_build()  # every library, before any tool runs
+    version = subprocess.run([tool_path, "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+    out_dir = os.path.join(HERE, "build", "chip_smoke_sanitize")
+    os.makedirs(out_dir, exist_ok=True)
+    # a tool that cannot check this device fails every program it runs
+    probe = subprocess.run(
+        [tool_path, "--tool", "memcheck", sys.executable, "-c",
+         "import torch; torch.ones(1, device='cuda').sum().item()"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    refused = [ln for ln in probe.stdout.splitlines()
+               if "not supported" in ln]
+    if refused:
+        fail(f"--sanitize: {tool_path} ({version[-1] if version else '?'}) "
+             f"does not support this device, so no tool ran: "
+             f"{refused[0].strip()}")
+    log(f"sanitize: {tool_path}, {version[-1] if version else '?'}; cuts: "
+        f"main family 4,096 reads (not 65,536), the 100 kb locus "
+        f"{LONG_HAP_READS} reads (not 512), the homopolymer locus "
+        f"{HOMOPOLYMER_READS} reads (not 128) under a 64 MiB chain-pass "
+        "budget, sw_pair's packed_limit and near_limit families and the "
+        "wide sw_pair launches left out (1 G cells and more a problem; "
+        "sw_pair runs every route on every other family)")
+
+    def run(tool):
+        argv = [tool_path, "--tool", tool, "--report-api-errors", "no",
+                "--print-limit", "50", *SANITIZE_FILTER,
+                sys.executable, os.path.abspath(__file__),
+                "--sanitize-child"]
+        env = dict(os.environ, CHIP_SMOKE_SANITIZE=tool,
+                   PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env,
+                              cwd=HERE)
+        with open(os.path.join(out_dir, f"{tool}.log"), "w") as f:
+            f.write(" ".join(argv) + "\n" + proc.stdout)
+        return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SANITIZE_TOOLS)) as ex:
+        runs = dict(zip(SANITIZE_TOOLS, ex.map(run, SANITIZE_TOOLS)))
+    bad = []
+    for tool, (rc, text, dt) in runs.items():
+        summary, calls, tail, blocks = sanitizer_report(text)
+        kernels = collections.Counter(c[0] for c in calls)
+        log(f"sanitize {tool}: exit {rc}, ERROR SUMMARY {summary}, "
+            f"{sum(c[3] for c in calls) + tail} reports over {len(calls)} "
+            f"checked kernel calls ({dict(kernels)}) on "
+            f"{len({c[1] for c in calls})} families; {dt:.1f} s")
+        for kernel, family, route, n in calls:
+            log(f"sanitize {tool}\t{kernel}\t{family}\t{route}\t{n}")
+        if tail:
+            log(f"sanitize {tool}: {tail} reports after the last check")
+        for block in blocks[:20]:
+            log("\n".join(block[:8]))
+        if rc != 0 or summary is None or summary or tail or blocks:
+            bad.append(tool)
+            log("\n".join(text.splitlines()[-40:]))
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    print(card)
+    if bad:
+        fail("--sanitize: " + ", ".join(bad) + " reported errors or failed "
+             f"(full output in {out_dir})")
+    print(json.dumps({"sanitize": {t: 0 for t in runs}}))
+
+
 if __name__ == "__main__":
-    if "--band" in sys.argv[1:]:
+    if "--sanitize-child" in sys.argv[1:]:
+        sanitize_child()
+    elif "--sanitize" in sys.argv[1:]:
+        sanitize_main()
+    elif "--band" in sys.argv[1:]:
         if not os.path.exists(os.path.join(HERE, "vartrix_tpu_torch",
                                            "__init__.py")):
             fail("run from a checkout of the repository: vartrix_tpu_torch/ "

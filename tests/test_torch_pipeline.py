@@ -74,3 +74,35 @@ def test_row_shard_matches_jax(tmp_path, data):
     exp, _ = _run(jax_main, data, tmp_path, "jax", shard + [
         "--host", "native", "--backend", "tpu"])
     assert _read(out) == _read(exp)
+
+
+@pytest.mark.parametrize("sw_mode", ["full", "banded"])
+def test_hap_matrix_rows_two_per_variant(tmp_path, data, monkeypatch,
+                                         sw_mode):
+    # each shape bucket's haplotype matrix reaches the backend unpadded:
+    # a ref and an alt row per variant of the bucket, every row indexed,
+    # and the matrix byte-equal to the JAX package's
+    import numpy as np
+
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    cls = sw_cuda.SwBackend if sw_mode == "full" else sw_cuda.BandedSwBackend
+    pair_calls = cls.pair_calls_chained
+    seen = []
+
+    def recorded(self, x, hap_mat, idx_ref, idx_alt):
+        seen.append((hap_mat.shape[0], np.unique(idx_ref), np.unique(idx_alt)))
+        return pair_calls(self, x, hap_mat, idx_ref, idx_alt)
+
+    monkeypatch.setattr(cls, "pair_calls_chained", recorded)
+    out, _ = _run(port_main, data, tmp_path, "port", [
+        "--sw-mode", sw_mode, "--device", "cpu", "--backend", "torch"])
+    assert seen
+    for rows, ref_rows, alt_rows in seen:
+        n_variants = len(ref_rows)
+        assert rows == 2 * n_variants
+        assert ref_rows.tolist() == list(range(0, rows, 2))
+        assert alt_rows.tolist() == list(range(1, rows, 2))
+    exp, _ = _run(jax_main, data, tmp_path, "jax", [
+        "--sw-mode", sw_mode, "--host", "native", "--backend", "cpu"])
+    assert _read(out) == _read(exp)

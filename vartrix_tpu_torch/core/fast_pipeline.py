@@ -288,7 +288,6 @@ def _score_all_pairs(
         hap_ids[1::2] = 2 * uniq_v + 1
         hap_mat = _gather_padded_pool(hap_pool, hap_off, hap_ids, ly,
                                       pad_byte=1)
-        hap_mat = _quantize_hap_rows(hap_mat)
         x = _read_provider(cbam, t_read[sel], lx)
         idx_ref = (2 * v_inv).astype(np.int32)
         idx_alt = (2 * v_inv + 1).astype(np.int32)
@@ -297,20 +296,6 @@ def _score_all_pairs(
     for wi, start, count in blocks:
         results[wi][...] = flat[start : start + count]
     return results
-
-
-def _quantize_hap_rows(hap_mat: np.ndarray) -> np.ndarray:
-    """Pad the haplotype matrix to a power-of-two row count (min 256), the
-    bucket layout of the reference pipeline. Pad rows are never indexed."""
-    n = hap_mat.shape[0]
-    q = 256
-    while q < n:
-        q *= 2
-    if q == n:
-        return hap_mat
-    out = np.ones((q, hap_mat.shape[1]), dtype=np.uint8)
-    out[:n] = hap_mat
-    return out
 
 
 def _gather_padded_pool(pool: np.ndarray, off: np.ndarray, ids: np.ndarray,

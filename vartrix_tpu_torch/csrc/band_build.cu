@@ -32,13 +32,31 @@
 // Design. Matches are looked up in a per-haplotype k-mer index, built once
 // for a haplotype matrix and kept for every launch over it (ops/sw_cuda
 // band_index builds it once per shape bucket):
-//   1. index_kernel: one block per haplotype row: its true length, then its
-//      len_y - 5 6-mer keys sorted by (key, j): every row is cut into runs
-//      of one key, then runs of 2, 4, ... are merged in global memory (each
-//      element finds its place by a binary search in the other run; on
-//      equal keys the left run's elements, of smaller j, go first), so the
-//      matches of one read 6-mer are one run of the sorted keys, ascending
-//      in j. Pad rows (len_y = 0) stop after the length scan;
+//   1. the index build: per haplotype row its true length, then its
+//      len_y - 5 6-mer keys sorted by (key, j), so the matches of one read
+//      6-mer are one run of the sorted keys, ascending in j. Two width
+//      routes (ops/sw_cuda.index_route picks one by ly):
+//      * index_shared_kernel, while a row's keys fit on chip (at most
+//        kSortMaxKeys, ly <= 8,197): a group of threads per row, each
+//        holding kSortPerThread composite words key << 16 | j (unique, so
+//        the sort needs no stability rule; j < 2^16 on this route); a
+//        warp per row and 8 rows per block up to 256 keys, else
+//        sort / kSortPerThread threads and one row per block. The block's
+//        rows are loaded once, in aligned words, into shared memory; each
+//        thread builds its keys from 5 of those words by funnel shifts;
+//        then a bitonic network over the row's keys rounded up to a power
+//        of two (sentinels past n): strides within a thread in registers,
+//        within a warp by shuffles, across warps through shared memory.
+//        The sorted row goes once through shared memory and out
+//        coalesced: no scratch in device memory. Its bound is the bytes
+//        (the rows read once, 12 bytes a key and 4 a row written once),
+//        below one launch's own cost at the main path's shapes;
+//      * index_kernel, past that: one block per row, runs of 1, 2, 4, ...
+//        merged in global memory (each element finds its place by a
+//        binary search in the other run; on equal keys the left run's
+//        elements, of smaller j, go first), alternating with scratch of
+//        the index's size.
+//      Pad rows (len_y = 0) stop after the length scan;
 //   2. count_kernel: one warp per problem; each lane takes one read
 //      position, looks its key up (a binary search for the run's start,
 //      a gallop for its end) and adds the run's length. The wrapper sums the counts on the card (torch.cumsum) and
@@ -108,7 +126,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChainThreads = 256;  // chain pass: a warp per problem
 constexpr int kChainWarps = kChainThreads / 32;
 constexpr int kRing = 8;  // chunks of 32 matches a warp keeps on the chip
-constexpr int kIndexThreads = 256;
+constexpr int kIndexThreads = 256;  // the global index route: a row a block
+// The shared index route: keys per thread, per warp, per row at most, and
+// rows per block of a warp per row
+constexpr int kSortPerThread = 8;
+constexpr int kSortWarpKeys = 32 * kSortPerThread;
+constexpr int kSortMaxKeys = 8192;
+constexpr int kSortWarpRows = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long kmer_key(
@@ -207,6 +231,206 @@ index_kernel(const uint8_t* __restrict__ haps, int ly,
     int32_t* pt = pa;
     pa = pb;
     pb = pt;
+  }
+}
+
+// The shared index route's launch shape for rows of width ly: the sort
+// size (the n = ly - 5 keys rounded up to a power of two, at least a
+// warp's kSortWarpKeys), threads per row (kSortPerThread keys each), rows
+// per block and the block's shared bytes (each row's keys at a stride of
+// group + 1 words per key slot, then the rows' bytes as words); sort 0
+// when a row's keys do not fit (more than kSortMaxKeys).
+struct IndexShape {
+  int sort, group, rows;
+  size_t smem;
+};
+
+// Words of the block's row bytes in shared memory: the rows, up to 3
+// bytes of alignment before them and the 4 words a thread's last keys
+// read past its row.
+__host__ __device__ __forceinline__ int index_words(int ly, int rows) {
+  return static_cast<int>((static_cast<long long>(rows) * ly + 3) / 4 + 5);
+}
+
+IndexShape index_shape(int ly) {
+  const int n = ly > kK - 1 ? ly - kK + 1 : 0;
+  int sort = kSortWarpKeys;
+  while (sort < n && sort <= kSortMaxKeys) sort <<= 1;
+  if (sort > kSortMaxKeys) return IndexShape{0, 0, 0, 0};
+  const int group = sort / kSortPerThread;
+  const int rows = group == 32 ? kSortWarpRows : 1;
+  const size_t smem = sizeof(unsigned long long) * rows * kSortPerThread *
+                          (group + 1) +
+                      sizeof(uint32_t) * index_words(ly, rows);
+  return IndexShape{sort, group, rows, smem};
+}
+
+// A bitonic compare-exchange within a thread: (a, b) ascending when asc,
+// else descending.
+__device__ __forceinline__ void sort_pair(unsigned long long& a,
+                                          unsigned long long& b, bool asc) {
+  const bool swap = (a > b) == asc;
+  const unsigned long long lo = swap ? b : a, hi = swap ? a : b;
+  a = lo;
+  b = hi;
+}
+
+// A bitonic compare-exchange across threads: this thread's v against its
+// partner's w, the lesser kept when keep_min, else the greater.
+__device__ __forceinline__ unsigned long long sort_keep(unsigned long long v,
+                                                        unsigned long long w,
+                                                        bool keep_min) {
+  return (v < w) == keep_min ? v : w;
+}
+
+// The index of `rows_per_block` haplotype rows by groups of `group`
+// threads (kWarpRows: a warp per row, kSortWarpRows rows; else one row of
+// `group` threads): the rows' bytes into shared memory as aligned words;
+// a row's true length by a reduction; thread t's keys i = t kSortPerThread
+// + r as composites key << 16 | i (~0 past n); a bitonic sort of the
+// first `size` (n rounded up to a power of two) in registers, shuffles
+// and, between warps, shared memory; then the row out through shared
+// memory, n keys and positions, coalesced.
+template <bool kWarpRows>
+__global__ void __launch_bounds__(1024)
+index_shared_kernel(const uint8_t* __restrict__ haps, int n_haps, int ly,
+                    int group, int rows_per_block,
+                    unsigned long long* __restrict__ keys,
+                    int32_t* __restrict__ pos,
+                    int32_t* __restrict__ hap_len) {
+  constexpr int kE = kSortPerThread;
+  extern __shared__ unsigned long long s_sort[];
+  __shared__ int s_len;
+  const int stride = group + 1;  // words from a thread's slot r to r + 1
+  uint32_t* s_words = reinterpret_cast<uint32_t*>(
+      s_sort + static_cast<size_t>(rows_per_block) * kE * stride);
+  const int words = index_words(ly, rows_per_block);
+  const size_t h0 = static_cast<size_t>(blockIdx.x) * rows_per_block;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(rows_per_block),
+          n_haps - static_cast<long long>(h0)));
+  // word k: the bytes from span - a + 4k on (a: the span's offset from an
+  // aligned word), zero outside the span; only words inside it are loaded
+  // whole
+  const uint8_t* span = haps + h0 * ly;
+  const long long n_bytes = static_cast<long long>(rows) * ly;
+  const int a = static_cast<int>(reinterpret_cast<uintptr_t>(span) & 3);
+  const uint32_t* span_words = reinterpret_cast<const uint32_t*>(span - a);
+  for (int k = threadIdx.x; k < words; k += blockDim.x) {
+    const long long b0 = 4ll * k - a;
+    uint32_t w = 0;
+    if (b0 >= 0 && b0 + 4 <= n_bytes) {
+      w = __ldg(span_words + k);
+    } else {
+      for (int t = 0; t < 4; ++t) {
+        if (b0 + t >= 0 && b0 + t < n_bytes) {
+          w |= static_cast<uint32_t>(__ldg(span + b0 + t)) << (8 * t);
+        }
+      }
+    }
+    s_words[k] = w;
+  }
+  if (!kWarpRows && threadIdx.x == 0) s_len = 0;
+  __syncthreads();
+  const int rho = threadIdx.x / group, t = threadIdx.x % group;
+  if (rho >= rows) return;  // a warp of the last block without a row
+  const uint8_t* row =
+      reinterpret_cast<const uint8_t*>(s_words) + a + rho * ly;
+  int len = 0;
+  for (int j = t; j < ly; j += group) {
+    if (row[j] != 1) len = j + 1;
+  }
+  len = __reduce_max_sync(kFull, len);
+  if (!kWarpRows) {
+    if ((threadIdx.x & 31) == 0) atomicMax(&s_len, len);
+    __syncthreads();
+    len = s_len;
+  }
+  const size_t h = h0 + rho;
+  if (t == 0) hap_len[h] = len;
+  const int n = len - kK + 1;
+  if (n <= 0) return;
+  // keys i0 .. i0 + 7 from bytes o .. o + 12 of the words: u, the words
+  // aligned to byte o, then each key's 6 bytes from two of them
+  unsigned long long v[kE];
+  const int i0 = t * kE;
+  if (i0 < n) {
+    const int o = a + rho * ly + i0;
+    uint32_t w[5], u[4];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) w[q] = s_words[(o >> 2) + q];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      u[q] = __funnelshift_r(w[q], w[q + 1], 8 * (o & 3));
+    }
+#pragma unroll
+    for (int r = 0; r < kE; ++r) {
+      const int q = r >> 2, s = 8 * (r & 3);
+      const uint32_t lo = __funnelshift_r(u[q], u[q + 1], s);
+      const uint32_t hi = __funnelshift_r(u[q + 1], u[q + 2], s) & 0xffffu;
+      const unsigned long long key =
+          (static_cast<unsigned long long>(hi) << 32) | lo;
+      v[r] = i0 + r < n ? key << 16 | static_cast<unsigned>(i0 + r) : ~0ull;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kE; ++r) v[r] = ~0ull;
+  }
+  // the bitonic network over the first `size` slots: stage k sorts runs
+  // of k, ascending where slot i has (i & k) == 0; a step of stride j
+  // pairs i with i ^ j, the lesser to the lower slot of an ascending run
+  int size = 1;
+  while (size < n) size <<= 1;
+  unsigned long long* s_row = s_sort + static_cast<size_t>(rho) * kE * stride;
+  for (int k = 2; k <= size; k <<= 1) {
+    for (int j = k >> 1; j >= kE; j >>= 1) {
+      const int m = j / kE;  // the partner: thread t ^ m, the same slot r
+      const bool keep_min = ((t & m) == 0) == ((i0 & k) == 0);
+      if (kWarpRows || m < 32) {
+#pragma unroll
+        for (int r = 0; r < kE; ++r) {
+          v[r] = sort_keep(v[r], __shfl_xor_sync(kFull, v[r], m), keep_min);
+        }
+      } else {
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < kE; ++r) s_row[r * stride + t] = v[r];
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < kE; ++r) {
+          v[r] = sort_keep(v[r], s_row[r * stride + (t ^ m)], keep_min);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = kE / 2; jj > 0; jj >>= 1) {
+      if (jj < k) {
+#pragma unroll
+        for (int r = 0; r < kE; ++r) {
+          if ((r & jj) == 0) sort_pair(v[r], v[r | jj], ((i0 + r) & k) == 0);
+        }
+      }
+    }
+  }
+  // slot i = t kE + r at s_row[r * stride + t], then out in i order
+  if (kWarpRows) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < kE; ++r) s_row[r * stride + t] = v[r];
+  if (kWarpRows) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+  unsigned long long* out_keys = keys + h * ly;
+  int32_t* out_pos = pos + h * ly;
+  for (int e = t; e < n; e += group) {
+    const unsigned long long c = s_row[(e % kE) * stride + e / kE];
+    out_keys[e] = c >> 16;
+    out_pos[e] = static_cast<int32_t>(c & 0xffffu);
   }
 }
 
@@ -708,19 +932,50 @@ extern "C" {
 // The k-mer index of a haplotype matrix on `stream`. haps: uint8 [n_haps,
 // ly] (pad 1); keys: uint64 and pos: int32 [n_haps, ly], of which row h's
 // first hap_len[h] - 5 entries are written (its 6-mer keys and positions,
-// sorted by (key, j)); tmp_keys, tmp_pos: scratch of the same shapes;
-// hap_len: int32 [n_haps]. Returns cudaGetLastError() (0 = ok).
+// sorted by (key, j)); hap_len: int32 [n_haps], every row written. route
+// 0: the shared route (tmp_keys, tmp_pos unread; refused past
+// kSortMaxKeys keys a row, or where its shared memory does not fit a
+// block); 1: the global route, tmp_keys, tmp_pos scratch of keys' and
+// pos' shapes. Returns cudaGetLastError() (0 = ok), or
+// cudaErrorInvalidValue for a route that cannot take the matrix.
 int band_index_build(const void* haps, int n_haps, int ly, void* keys,
                      void* pos, void* tmp_keys, void* tmp_pos, void* hap_len,
-                     void* stream) {
-  if (n_haps > 0 && ly > 0) {
-    index_kernel<<<n_haps, kIndexThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+                     int route, void* stream) {
+  if (route != 0 && route != 1) return cudaErrorInvalidValue;
+  const IndexShape shape = index_shape(ly);
+  if (route == 0 && shape.sort == 0) return cudaErrorInvalidValue;
+  if (route == 1 && (tmp_keys == nullptr || tmp_pos == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n_haps <= 0 || ly <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    index_kernel<<<n_haps, kIndexThreads, 0, s>>>(
         static_cast<const uint8_t*>(haps), ly,
         static_cast<unsigned long long*>(keys), static_cast<int32_t*>(pos),
         static_cast<unsigned long long*>(tmp_keys),
         static_cast<int32_t*>(tmp_pos), static_cast<int32_t*>(hap_len));
+    return static_cast<int>(cudaGetLastError());
   }
+  auto kernel = shape.rows > 1 ? index_shared_kernel<true>
+                               : index_shared_kernel<false>;
+  if (shape.smem + sizeof(int) > 48 * 1024) {
+    int device = 0, limit = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           device);
+    if (shape.smem + sizeof(int) > static_cast<size_t>(limit)) {
+      return cudaErrorInvalidValue;
+    }
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(shape.smem));
+  }
+  const unsigned blocks =
+      static_cast<unsigned>((n_haps + shape.rows - 1) / shape.rows);
+  kernel<<<blocks, shape.group * shape.rows, shape.smem, s>>>(
+      static_cast<const uint8_t*>(haps), n_haps, ly, shape.group, shape.rows,
+      static_cast<unsigned long long*>(keys), static_cast<int32_t*>(pos),
+      static_cast<int32_t*>(hap_len));
   return static_cast<int>(cudaGetLastError());
 }
 

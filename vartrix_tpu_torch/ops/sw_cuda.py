@@ -125,7 +125,7 @@ def bind_band_library(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.band_index_build.restype = ci
-    lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.band_index_build.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, vp]
     lib.band_build_count.restype = ci
     lib.band_build_count.argtypes = [vp, ci, ci, ci, vp, vp, ci, vp, vp, vp,
                                      vp, vp]
@@ -540,40 +540,99 @@ def band_ranges(ends: np.ndarray, lx: int, budget: int,
     return out
 
 
-def _launch_index(hap_mat: torch.Tensor) -> BandIndex:
+# the index build's width routes (csrc/band_build.cu band_index_build), by
+# their code: each row's keys sorted on chip, or merge passes in device
+# memory
+INDEX_ROUTES = ("shared", "global")
+# keys per thread of the shared route (kSortPerThread), per warp, and per
+# row at most (kSortMaxKeys): the widest haplotype row it takes has
+# INDEX_SHARED_KEYS + 5 bytes
+INDEX_SORT_PER_THREAD = 8
+INDEX_WARP_KEYS = 32 * INDEX_SORT_PER_THREAD
+INDEX_SHARED_KEYS = 8192
+INDEX_SHARED_LY = INDEX_SHARED_KEYS + 5
+
+
+def index_route(ly: int) -> str:
+    """The index build's route for haplotype rows of width ly: "shared"
+    while a row's ly - 5 keys fit one block's sort on chip
+    (INDEX_SHARED_LY), else "global"."""
+    return "shared" if ly <= INDEX_SHARED_LY else "global"
+
+
+def index_shape(ly: int) -> Tuple[int, int, int]:
+    """The shared route's launch shape for rows of width ly (band_build.cu
+    index_shape): (sort, threads per row, rows per block). sort: the ly - 5
+    keys rounded up to a power of two, at least a warp's INDEX_WARP_KEYS;
+    a warp per row and 8 rows per block at that size, else sort / 8
+    threads and one row per block."""
+    n = max(ly - 5, 0)
+    sort = INDEX_WARP_KEYS
+    while sort < n:
+        sort *= 2
+    if sort > INDEX_SHARED_KEYS:
+        raise ValueError(f"rows of {ly} bytes do not fit the shared route")
+    group = sort // INDEX_SORT_PER_THREAD
+    return sort, group, 8 if group == 32 else 1
+
+
+def index_buffers(H: int, ly: int, route: str,
+                  dev: torch.device) -> Tuple[BandIndex, tuple]:
+    """The index of an [H, ly] matrix as the wrapper allocates it on `dev`
+    (keys int64 [H, ly], pos int32 [H, ly], hap_len int32 [H]), and the
+    route's scratch (tmp_keys, tmp_pos) of the same shapes on "global"
+    only: (None, None) on "shared". Three allocations: on the card they
+    take less host time than one buffer cut into views (PERF.md)."""
+    index = BandIndex(torch.empty((H, ly), dtype=torch.int64, device=dev),
+                      torch.empty((H, ly), dtype=torch.int32, device=dev),
+                      torch.empty(H, dtype=torch.int32, device=dev))
+    if route != "global":
+        return index, (None, None)
+    return index, (torch.empty_like(index.keys), torch.empty_like(index.pos))
+
+
+def _launch_index(hap_mat: torch.Tensor,
+                  route: Optional[str] = None) -> BandIndex:
     """Validate, allocate and launch the index build on the current
-    stream."""
+    stream; route: one of INDEX_ROUTES (default index_route(ly)); the
+    kernel refuses the shared route past INDEX_SHARED_LY. The kernel
+    writes every row's length, so only a matrix without rows or columns
+    gets its zeros here."""
     global INDEX_LAUNCHES
     dev = hap_mat.device
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
     H, ly = hap_mat.shape
-    index = BandIndex(torch.empty((H, ly), dtype=torch.int64, device=dev),
-                      torch.empty((H, ly), dtype=torch.int32, device=dev),
-                      torch.zeros(H, dtype=torch.int32, device=dev))
+    route = index_route(ly) if route is None else route
+    if route not in INDEX_ROUTES:
+        raise ValueError(f"route must be one of {INDEX_ROUTES}, got {route!r}")
+    index, tmp = index_buffers(H, ly, route, dev)
     if H == 0 or ly == 0:
+        index.hap_len.zero_()
         return index
     lib = _band_kernel()
-    tmp_keys = torch.empty_like(index.keys)
-    tmp_pos = torch.empty_like(index.pos)
     err = lib.band_index_build(
         hap_mat.data_ptr(), H, ly, index.keys.data_ptr(),
-        index.pos.data_ptr(), tmp_keys.data_ptr(), tmp_pos.data_ptr(),
-        index.hap_len.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        index.pos.data_ptr(), *(None if t is None else t.data_ptr()
+                                for t in tmp),
+        index.hap_len.data_ptr(), INDEX_ROUTES.index(route),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("band_index kernel launch failed: "
+        raise RuntimeError(f"band_index kernel launch failed ({route}): "
                            + lib.band_build_error_string(err).decode())
     INDEX_LAUNCHES += 1
     return index
 
 
-def band_index(hap_mat: torch.Tensor) -> BandIndex:
+def band_index(hap_mat: torch.Tensor, *,
+               route: Optional[str] = None) -> BandIndex:
     """The k-mer index of the band builder: per haplotype row its true
     length and its 6-mer keys sorted by (key, j) (band_torch.BandIndex).
     hap_mat: uint8 [H, ly] (pad 1). Built once per haplotype matrix and
-    passed to every band_bounds call over it."""
+    passed to every band_bounds call over it. route (the kernel only): one
+    of INDEX_ROUTES in place of index_route(ly), for measurements."""
     if hap_mat.device.type == "cpu":
         return band_torch.band_index(hap_mat)
-    return _launch_index(hap_mat)
+    return _launch_index(hap_mat, route)
 
 
 def band_problems(reads: torch.Tensor, hap_mat: torch.Tensor,
