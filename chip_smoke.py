@@ -9,18 +9,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   1. card and toolchain: name and power limit (nvidia-smi), torch, CUDA;
   2. build: the CUDA kernels sw_pair.cu, sw_banded.cu and band_build.cu
      (nvcc), libgenomio, libcramio (its link line printed) and the host
-     band reference band_bounds.cpp (g++) from the checkout's sources, two
-     probes (nvcc, SASS only: the least DP cell update, and band_build's
-     candidate scoring in two forms), a DPX rate probe and three probes
+     band reference band_bounds.cpp (g++) from the checkout's sources,
+     three probes (nvcc, SASS only: the least DP cell update, band_build's
+     candidate scoring in two forms, and a 4-bit read base's unpack in
+     two forms), a DPX rate probe and three probes
      of band_build's split (nvcc: copies of band_build.cu that return
      where its chain DP ends, the lookups probe also before each chunk's
      DP steps; and the chain DP under other problem-to-lane mappings),
      all in parallel, with the compiler's register report;
   3. each kernel against its plain PyTorch version on the card, exact
      equality. sw_pair (int32 scores and int8 codes) on each of its three
-     routes: dense and 2-bit reads over the shape families of the full
-     path, the interleaved-index and plain-row entries (the TPU kernels K5
-     and K6); reads at min(lx, ly) = 32,767 that score 32,767, the packed
+     routes: dense, 2-bit and 4-bit reads (each format the family's bytes
+     allow, each packed one also against the dense entry) over the shape
+     families of the full path, the interleaved-index and plain-row
+     entries (the TPU kernels K5 and K6); 4-bit reads with N, '=' and
+     IUPAC bytes, odd lengths and an empty read at the main shape, and at
+     the packed and word32 routes' limit widths (lx = ly = 32,766 and
+     65,534, few cells, on every route that holds them); reads at
+     min(lx, ly) = 32,767 that score 32,767, the packed
      route's edge; one read long enough to take the 32-bit scratch word
      near its 16-bit halves' limit; and reads of 65,602 bases against a
      70,000-base haplotype, scored above that limit by the 64-bit word
@@ -60,7 +66,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain versions and the host reference;
   4. timing at the main bucket shape (lx=160, ly=224, 131,072 pairs) with
      CUDA events: each kernel, its plain version, and its bound at the
-     card's instruction issue rate against its bytes. The DP kernels'
+     card's instruction issue rate against its bytes; sw_pair's packed
+     route also in its three read formats in turns (2-bit, 4-bit, dense)
+     with the 4-bit entry's bound, and the haplotypes' 4-bit unpack (once
+     per bucket). The DP kernels'
      bound charges each needed cell the least cell update, read from the
      SASS of a probe that includes neither kernel (cuobjdump); beside it
      the SASS of each hot loop and the DPX add-max rate of the card. For
@@ -96,8 +105,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      consensus cuda run writes a --profile-dir trace, read for the card's
      idle share in
      `score` (vartrix_tpu_torch.utils.trace); it must hold every sw_pair
-     launch. The CLI entry (python -m vartrix_tpu_torch) runs on a small
-     dataset in both modes;
+     launch. Then the N dataset: phase 5's BAM with one base set to N in a
+     seeded 1 % of the reads (a fourth worker process), full consensus
+     with --backend torch and with --backend cuda at prefetch depths 2, 0,
+     2, 0, unprofiled and then under --profile-dir (score's idle share and
+     the trace's H2D bytes at each depth); every cuda run must ship 4-bit
+     read chunks and equal the torch run's matrix. The CLI entry (python
+     -m vartrix_tpu_torch) runs on a small dataset in both modes;
   6. input and run control: a sparse whole-genome-like dataset (16 x 4 Mb,
      400 variants, ~1.4 M reads, a BAM over --fetch auto's 64 MiB
      threshold; generated in a second worker process from phase 3), each
@@ -121,6 +135,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      each CSR-equal to phase 5's BAM matrix of its mode with the same
      launches, libcramio's decode taken; --host python on the 50,000-read
      BAM and CRAM in full consensus and on the BAM in banded consensus,
+     and on the BAM's N copy (one N in a seeded 1 % of its reads, as
+     phase 5's N dataset) in full consensus, where the native host ships
+     4-bit reads and haplotypes and the Python host dense plain rows,
      each CSR-equal to the native host's run on the same file, sw_pair
      launched on the full runs and both banded kernels in their plain-row
      mode on the banded one, the host band reference never; then python -m
@@ -134,7 +151,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      without the option, with its path's kernels launched (`aggregate`
      printed beside phase 5's); MeshSwBackend and build_sharded_step over
      two parts on this card, exactly against one SwBackend (int32 scores
-     and int8 codes, dense and 2-bit reads) and one count_block of the
+     and int8 codes, dense, 2-bit and 4-bit reads) and one count_block of the
      whole batch, on 65,536 reads of phase 3's main family shape; then two
      `python -m vartrix_tpu_torch --distributed 127.0.0.1:PORT,2,RANK`
      processes on this card in coverage + umi, whose rank 0 writes
@@ -197,8 +214,13 @@ ISSUE_PER_SM_CLK = 4 * 32
 # route); banded, int8 call codes on the packed route (and beside it on
 # the 32-bit scalar route); the chain pass with 32-bit chain keys, band
 # rows in shared memory
-MAIN_KERNEL_SYMBOL = "sw_pair16x2_kernelILb1ELb1E"
-SCALAR_KERNEL_SYMBOL = "sw_pair_kernelILb1ELb1ELb0E"
+MAIN_KERNEL_SYMBOL = "sw_pair16x2_kernelILi1ELb1E"
+SCALAR_KERNEL_SYMBOL = "sw_pair_kernelILi1ELb1ELb0E"
+# sw_pair's other read formats on the packed route, int8 codes: dense bytes
+# and 4-bit codes (the instantiation reads that carry N take)
+PAIR_FORMAT_SYMBOLS = {"dense": "sw_pair16x2_kernelILi0ELb1E",
+                       "p2": MAIN_KERNEL_SYMBOL,
+                       "p4": "sw_pair16x2_kernelILi2ELb1E"}
 BANDED_KERNEL_SYMBOL = "sw_banded16x2_kernelILb1EE"
 BANDED_SCALAR_SYMBOL = "sw_banded_kernelILb1ELb0EE"
 CHAIN_KERNEL_SYMBOL = "chain_kernelIiLb1EE"
@@ -345,6 +367,72 @@ __global__ void cell_load_probe(const uint4* __restrict__ cells, int n,
   for (int k = 0; k + 1 < n; k += 2) {
     const uint4 a = cells[k], b = cells[k + 1];
     acc ^= a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w;
+  }
+  out[threadIdx.x] = acc;
+}
+'''
+# The 4-bit read entry's bound charges each read base the least unpack of
+# its nibble on this card: a loop that loads one byte of two 4-bit codes
+# and unpacks both to their symbol bytes of `=ACMGRSVTWYHKDBN`, in two
+# forms (sw_pair.cu's read_base<kBits4>: a 64-bit table word chosen by the
+# code's high bit, shifted by its low three; and byte permutes of the
+# table in four words), less the same loop that loads the byte and
+# consumes it alone, over two bases. It includes no kernel's source.
+NIBBLE_PROBE_SRC = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+constexpr unsigned long long kLo = 0x565352474d43413dULL;  // "=ACMGRSV"
+constexpr unsigned long long kHi = 0x4e42444b48595754ULL;  // "TWYHKDBN"
+
+__device__ __forceinline__ uint32_t by_word(uint32_t code) {
+  const unsigned long long w = code & 8 ? kHi : kLo;
+  return static_cast<uint32_t>((w >> ((code & 7) * 8)) & 0xff);
+}
+
+// the table in registers, four bytes a word
+__device__ uint32_t table[4] = {0x4d43413du, 0x56535247u, 0x48595754u,
+                                0x4e42444bu};
+
+__device__ __forceinline__ uint32_t by_permute(uint32_t code, uint32_t t0,
+                                               uint32_t t1, uint32_t t2,
+                                               uint32_t t3) {
+  const uint32_t k = code & 7;
+  return __byte_perm(code & 8 ? t2 : t0, code & 8 ? t3 : t1, k) & 0xff;
+}
+
+__global__ void nibble_word_probe(const uint8_t* __restrict__ row, int n,
+                                  uint32_t* __restrict__ out) {
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const uint32_t b = __ldg(row + i);
+    acc ^= by_word(b >> 4) ^ (by_word(b & 15) << 8);
+  }
+  out[threadIdx.x] = acc;
+}
+
+__global__ void nibble_permute_probe(const uint8_t* __restrict__ row, int n,
+                                     uint32_t* __restrict__ out) {
+  const uint32_t t0 = table[0], t1 = table[1], t2 = table[2], t3 = table[3];
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const uint32_t b = __ldg(row + i);
+    acc ^= by_permute(b >> 4, t0, t1, t2, t3)
+           ^ (by_permute(b & 15, t0, t1, t2, t3) << 8);
+  }
+  out[threadIdx.x] = acc;
+}
+
+// the same loop and load, the byte consumed alone
+__global__ void nibble_load_probe(const uint8_t* __restrict__ row, int n,
+                                  uint32_t* __restrict__ out) {
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    const uint32_t b = __ldg(row + i);
+    acc ^= b ^ (b << 8);
   }
   out[threadIdx.x] = acc;
 }
@@ -632,6 +720,9 @@ MAPPING_LANES = (32, 16, 8)
 MAIN_LX, MAIN_LY, MAIN_READS = 160, 224, 65536
 E2E_CFG = dict(n_chroms=4, chrom_len=200_000, n_variants=1000, n_cells=2000,
                reads_per_variant=500, spliced_frac=0.5, seed=100)
+# phase 5's N dataset: its reads with one base set to N in a seeded 1 %
+# of them (about the share of Illumina reads that carry an N)
+N_READ_FRAC, N_READ_SEED = 0.01, 101
 # phase 7's --host python dataset: phase 5's widths with a tenth of its
 # variants (50,000 reads), cut because the Python record path decodes and
 # joins every record in Python
@@ -816,6 +907,30 @@ def pack2(x):
     return out, (x != 0).sum(1).astype(np.int32)
 
 
+NT16 = b"=ACMGRSVTWYHKDBN"  # BAM's 4-bit symbols, by code
+
+
+def pack4(x):
+    """uint8 [R, lx] reads of BAM's 16 symbols (pad 0; lx even) -> (uint8
+    [R, lx//2] nibbles, high first, int32 [R] lengths)."""
+    import numpy as np
+
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(NT16, np.uint8)] = np.arange(16, dtype=np.uint8)
+    codes = lut[x]
+    return ((codes[:, 0::2] << 4) | codes[:, 1::2],
+            (x != 0).sum(1).astype(np.int32))
+
+
+def nt16_only(x):
+    """Whether every read byte of x lies in BAM's 16 symbols and its width
+    is even: the 4-bit entry takes it."""
+    import numpy as np
+
+    return x.shape[1] % 2 == 0 and bool(np.isin(
+        x[x != 0], np.frombuffer(NT16, np.uint8)).all())
+
+
 def true_cells(x, haps, idx_ref, idx_alt, strip=1):
     """Sum over (read, haplotype) pairs of true read length (rounded up to
     `strip` rows) x true haplotype length."""
@@ -871,6 +986,48 @@ def packed_limit_family(rng):
     idx = np.zeros(len(reads), np.int32)
     known = [[n, n - 7], [n - 9, n - 16], [n - 7, n - 1], [n - 1, n - 8]]
     return x, haps, idx, idx + 1, known
+
+
+def packed4_family(rng, n_reads=4096):
+    """4-bit reads at the main shape (lx 160, ly 224): odd and even read
+    lengths, N, '=' and IUPAC bytes at seeded positions (about 2 % of
+    bases), and a read of length 0 (read 0)."""
+    import numpy as np
+
+    x, haps, ir, ia = make_family(rng, n_reads, MAIN_LX, MAIN_LY,
+                                  read_len=(1, MAIN_LX), hap_len=(1, MAIN_LY))
+    odd = (rng.random(x.shape) < 0.02) & (x != 0)
+    x[odd] = rng.choice(np.frombuffer(b"N=RYKMSWBDHV", np.uint8),
+                        int(odd.sum()))
+    x[0] = 0
+    return x, haps, ir, ia
+
+
+def packed4_limit_family(rng, width):
+    """4-bit reads in a bucket of lx = ly = width, a route's limit, at few
+    cells: haplotype 0 of `width` bases; 1 and 2 two 224-base windows of
+    it, each with a substitution; reads: haplotype 0 whole with IUPAC bytes
+    against (1, 2), 151 bases of haplotype 0's end against (0, 1), an
+    empty read against (0, 2), and 149 bases of haplotype 1 with N and '='
+    against (1, 0)."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    iupac = np.frombuffer(b"N=RYKMSWBDHV", np.uint8)
+    hap = rng.choice(bases, width)
+    haps = np.ones((3, width), np.uint8)
+    haps[0] = hap
+    for h, at in ((1, 1000), (2, width - 224)):
+        haps[h, :224] = hap[at : at + 224]
+        haps[h, 100] = bases[(np.searchsorted(bases, haps[h, 100]) + 1) % 4]
+    x = np.zeros((4, width), np.uint8)
+    x[0] = hap
+    x[0, rng.integers(0, width, 64)] = rng.choice(iupac, 64)
+    x[1, :151] = hap[width - 151 :]
+    x[3, :149] = haps[1, 30:179]
+    x[3, [7, 77, 140]] = np.frombuffer(b"N=N", np.uint8)
+    return (x, haps, np.array([1, 0, 0, 1], np.int32),
+            np.array([2, 1, 2, 0], np.int32))
 
 
 def wide_full_family(rng, n_reads=4, n=65600, ly=70000):
@@ -1189,13 +1346,14 @@ def phase_build():
                     _build.BAND_BUILD_SRC, lookups=True), "-shared"),
                 lambda: build_probe("mapping_probe", MAPPING_PROBE_SRC,
                                     "-shared"),
-                lambda: build_probe("empty_probe", EMPTY_SRC, "-shared"))
+                lambda: build_probe("empty_probe", EMPTY_SRC, "-shared"),
+                lambda: build_probe("nibble_probe", NIBBLE_PROBE_SRC))
     with ThreadPoolExecutor(max_workers=len(builders)) as ex:
         futures = [ex.submit(b) for b in builders]
         paths = [f.result() for f in futures]
     log(f"build: sw_pair.cu + sw_banded.cu + band_build.cu + genomio.cpp + "
         f"band_bounds.cpp + cramio.cpp + the candidate, cell, DPX rate, "
-        f"chain DP, lookups, mapping and empty kernel probes in "
+        f"chain DP, lookups, mapping, empty kernel and nibble probes in "
         f"{time.perf_counter() - t0:.2f}s")
     log("  libcramio: " + _build.build_log(paths[5]).splitlines()[0])
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
@@ -1269,6 +1427,16 @@ def phase_sass(paths):
         + _describe(n_instr, n, hist))
     packed = n_instr / (2 * n)
     packed_dpx = dpx_count(hist) / (2 * n)
+    format_loops = {}
+    for form, sym in PAIR_FORMAT_SYMBOLS.items():
+        loop = max(sass_loops(kern, sym, PACKED_CELL_OPCODE),
+                   key=lambda t: t[1])
+        format_loops[form] = loop[0]
+        log(f"sass: {sym} ({form} reads) hot loop: {loop[0]} instructions, "
+            f"{loop[0] / (2 * loop[1]):.4f} per problem cell")
+    if len(set(format_loops.values())) != 1:
+        fail(f"sw_pair's read formats differ in their hot loop: "
+             f"{format_loops}")
     n_instr, n, hist = max(sass_loops(kern, SCALAR_KERNEL_SYMBOL,
                                       CELL_OPCODE), key=lambda t: t[1])
     log(f"sass: {SCALAR_KERNEL_SYMBOL} hot loop, per cell: "
@@ -1284,6 +1452,22 @@ def phase_sass(paths):
             + _describe(loop[0], 1, loop[2])
             + (f"; {free} LOP3 and moves not counted" if free else ""))
     cell = (steps["_Z10cell_probe"][0] - steps["_Z15cell_load_probe"][0]) / 4
+    unpack = {}
+    for sym in ("nibble_word_probe", "nibble_permute_probe",
+                "nibble_load_probe"):
+        loop = min(sass_loops(paths[10], sym, "LDG"), key=lambda t: t[0])
+        unpack[sym] = loop[0]
+        log(f"sass: {sym} loop, per byte (two 4-bit bases): "
+            + _describe(loop[0], 1, loop[2]))
+    forms = {sym: (unpack[sym] - unpack["nibble_load_probe"]) / 2
+             for sym in ("nibble_word_probe", "nibble_permute_probe")}
+    nibble = min(forms.values())
+    if nibble <= 0:
+        fail("a nibble probe's loop is no longer than its load probe's")
+    log(f"sass: a 4-bit read base's unpack, per base: sw_pair.cu's form "
+        f"{forms['nibble_word_probe']:.1f}, byte permutes "
+        f"{forms['nibble_permute_probe']:.1f} instructions; charged the "
+        f"least, {nibble:.1f}")
     cell_dpx = steps["_Z10cell_probe"][1] / 4
     if cell <= 0:
         fail("the cell probe's loop is no longer than its load probe's")
@@ -1333,13 +1517,62 @@ def phase_sass(paths):
         f"{n_instr / n * 32 / 64:.4f} per candidate (64 per warp step)")
     return dict(cell=cell, cell_dpx=cell_dpx, packed=packed,
                 packed_dpx=packed_dpx, scalar=scalar, zones=zones,
+                format_loops=format_loops, nibble=nibble,
                 per_candidate=per_candidate, chain_step=n_instr / n)
 
 
-def phase_equality(rng):
-    """sw_pair against its plain version on every family and route;
-    returns max |err|."""
+def check_pair_forms(name, x, haps, ir, ia, routes):
+    """sw_pair on one family against its plain version, on each of
+    `routes`, in every read format its bytes allow: dense, 2-bit (A/C/G/T
+    only), 4-bit (BAM's 16 symbols, lx even); int32 scores and int8 codes,
+    each packed format also against the dense entry's output on the same
+    route. Returns max |err|."""
     import numpy as np
+    import torch
+
+    from vartrix_tpu_torch.ops import sw_cuda, sw_torch
+
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    plain = sw_torch.pair_scores(xt, ht, irt, iat)
+    plain_codes = sw_torch.calls_from_scores(plain)
+    forms = [("dense", xt, None, 2)]
+    if np.isin(x[x != 0], np.frombuffer(b"ACGT", np.uint8)).all():
+        xp, lens = pack2(x)
+        forms.append(("2bit", torch.from_numpy(xp).cuda(),
+                      torch.from_numpy(lens).cuda(), 2))
+    if nt16_only(x):
+        xp, lens = pack4(x)
+        forms.append(("4bit", torch.from_numpy(xp).cuda(),
+                      torch.from_numpy(lens).cuda(), 4))
+    worst = 0
+    dense = {}
+    for form, reads, lens, bits in forms:
+        res = []
+        for route in routes:
+            got = sw_cuda.pair_scores(reads, ht, irt, iat, read_lens=lens,
+                                      route=route, read_bits=bits)
+            after("sw_pair", name, f"{form} {route} scores")
+            codes = sw_cuda.pair_calls(reads, ht, irt, iat, read_lens=lens,
+                                       route=route, read_bits=bits)
+            after("sw_pair", name, f"{form} {route} codes")
+            dense.setdefault(route, (got, codes))
+            err = int((got - plain).abs().max().item()) if len(x) else 0
+            bad = int((codes != plain_codes).sum().item())
+            worst = max(worst, err)
+            res.append(f"{route} max|err|={err} code mismatches={bad}")
+            if (err or bad or not torch.equal(got, dense[route][0])
+                    or not torch.equal(codes, dense[route][1])):
+                fail(f"kernel disagrees with the plain version or its dense "
+                     f"entry on {name} ({form}, {route})")
+        by_width = sw_cuda.pair_route(x.shape[1], haps.shape[1])
+        log(f"sw_pair {name:11s} {form:5s} R={len(x)} lx={x.shape[1]} "
+            f"ly={haps.shape[1]} ({by_width} by width): " + "; ".join(res))
+    return worst
+
+
+def phase_equality(rng):
+    """sw_pair against its plain version on every family, route and read
+    format; returns max |err|."""
     import torch
 
     from vartrix_tpu_torch.ops import sw_cuda, sw_torch
@@ -1360,39 +1593,27 @@ def phase_equality(rng):
                                   read_len=(140, 150), hap_len=(180, 224),
                                   odd_bytes=True),
         "k5_idx2": k5_family(rng),
+        "packed4": packed4_family(rng),
     }
     worst = 0
     for name, (x, haps, ir, ia) in families.items():
-        xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
-        plain = sw_torch.pair_scores(xt, ht, irt, iat)
-        plain_codes = sw_torch.calls_from_scores(plain)
-        forms = [("dense", xt, None)]
-        if np.isin(x[x != 0], np.frombuffer(b"ACGT", np.uint8)).all():
-            xp, lens = pack2(x)
-            forms.append(("2bit", torch.from_numpy(xp).cuda(),
-                          torch.from_numpy(lens).cuda()))
-        for form, reads, lens in forms:
-            res = []
-            for route in sw_cuda.PAIR_ROUTES:
-                got = sw_cuda.pair_scores(reads, ht, irt, iat,
-                                          read_lens=lens, route=route)
-                after("sw_pair", name, f"{form} {route} scores")
-                codes = sw_cuda.pair_calls(reads, ht, irt, iat,
-                                           read_lens=lens, route=route)
-                after("sw_pair", name, f"{form} {route} codes")
-                err = int((got - plain).abs().max().item()) if len(x) else 0
-                bad = int((codes != plain_codes).sum().item())
-                worst = max(worst, err)
-                res.append(f"{route} max|err|={err} code mismatches={bad}")
-                if err or bad:
-                    fail(f"kernel disagrees with the plain version on {name} "
-                         f"({form}, {route})")
-            by_width = sw_cuda.pair_route(x.shape[1], haps.shape[1])
-            log(f"sw_pair {name:11s} {form:5s} R={len(x)} lx={x.shape[1]} "
-                f"ly={haps.shape[1]} ({by_width} by width): "
-                + "; ".join(res))
+        worst = max(worst, check_pair_forms(name, x, haps, ir, ia,
+                                            sw_cuda.PAIR_ROUTES))
         if name == "ly_4032":
             wide = (x, haps, ir, ia)
+    # 4-bit reads at the packed and word32 routes' limit widths, few cells,
+    # on each route that holds them (word64 too; not under --sanitize: the
+    # plain version sweeps 65,534 columns)
+    for width in () if SANITIZE else (32766, 65534):
+        x, haps, ir, ia = packed4_limit_family(rng, width)
+        routes = [r for r in sw_cuda.PAIR_ROUTES
+                  if r == "word64" or width <= (sw_cuda.PACKED_MAX
+                                                if r == "packed" else 65535)]
+        t0 = time.perf_counter()
+        worst = max(worst, check_pair_forms(f"packed4_{width}", x, haps, ir,
+                                            ia, routes))
+        log(f"sw_pair packed4_{width}: routes {routes}, "
+            f"{time.perf_counter() - t0:.1f} s")
     # the packed route's edge, then near the 32-bit scratch word's limit:
     # against the plain version and the known scores (not under
     # --sanitize: 1 G cells a problem; every family above runs on every
@@ -2054,7 +2275,10 @@ def phase_timing(rng, sass, clock_hz, rate_path):
     instruction issues once, whatever pipe runs it), against the bytes
     over HBM bandwidth. For information: the same cells at the probe's
     DPX instructions over the card's DPX add-max rate, the kernel's own
-    SASS per cell, its registers and the extra cells its pairs compute."""
+    SASS per cell, its registers and the extra cells its pairs compute.
+    Then the packed route's three read formats in turns (2-bit, 4-bit,
+    dense) with the 4-bit entry's bound, and the haplotypes' unpack."""
+    import numpy as np
     import torch
 
     from vartrix_tpu_torch.ops import _build, sw_cuda, sw_torch
@@ -2062,8 +2286,10 @@ def phase_timing(rng, sass, clock_hz, rate_path):
     x, haps, ir, ia = make_family(rng, MAIN_READS, MAIN_LX, MAIN_LY,
                                   read_len=(140, 150), hap_len=(180, 224))
     xp, lens = pack2(x)
-    _, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
+    xp4, _ = pack4(x)
+    xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     xpt = torch.from_numpy(xp).cuda()
+    xp4t = torch.from_numpy(xp4).cuda()
     lt = torch.from_numpy(lens).cuda()
     times = collections.defaultdict(list)
     for route in ("word32", "packed", "packed", "word32"):
@@ -2071,6 +2297,21 @@ def phase_timing(rng, sass, clock_hz, rate_path):
             xpt, ht, irt, iat, read_lens=lt, route=route), 3, 15))
     ms, scalar_ms = (statistics.median(times[r]) for r in ("packed",
                                                            "word32"))
+    # the packed route's three read formats on the same bytes, in turns
+    formats = {"p2": (xpt, lt, 2), "p4": (xp4t, lt, 4),
+               "dense": (xt, None, 2)}
+    for form in ("p2", "p4", "dense", "dense", "p4", "p2"):
+        reads, rl, bits = formats[form]
+        times[form].append(time_cuda(lambda: sw_cuda.pair_calls(
+            reads, ht, irt, iat, read_lens=rl, read_bits=bits), 3, 15))
+    form_ms = {f: statistics.median(times[f]) for f in formats}
+    # a bucket's haplotypes, shipped 4-bit, unpacked once on the card
+    hp, hlen = pack4(np.where(haps == 1, 0, haps).astype(np.uint8))
+    hpt, hlt = torch.from_numpy(hp).cuda(), torch.from_numpy(hlen).cuda()
+    if not torch.equal(sw_torch.unpack4(hpt, hlt, MAIN_LY, pad=1), ht):
+        fail("the haplotypes' 4-bit unpack differs from the dense matrix")
+    unpack_ms = time_cuda(lambda: sw_torch.unpack4(hpt, hlt, MAIN_LY, pad=1),
+                          3, 15)
     plain_ms = time_cuda(lambda: sw_torch.pair_calls(xpt, ht, irt, iat,
                                                      read_lens=lt), 1, 3)
     cells = true_cells(x, haps, ir, ia)
@@ -2087,6 +2328,14 @@ def phase_timing(rng, sass, clock_hz, rate_path):
               + MAIN_READS)  # inputs read once, int8 codes written once
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    # the 4-bit entry: the same cells, each read base unpacked once per
+    # problem pair (its strip loads it once), its own bytes
+    read_bases = int(lens.astype(np.int64).sum())
+    p4_ops_ms = ((cells * sass["cell"] + read_bases * sass["nibble"])
+                 / issue_per_s * 1e3)
+    p4_bytes = nbytes - xp.nbytes + xp4.nbytes
+    p4_bytes_ms = p4_bytes / HBM_BYTES_PER_S * 1e3
+    p4_bound_ms = max(p4_ops_ms, p4_bytes_ms)
     regs = {sym: registers(_build.kernel_library(), sym)
             for sym in (MAIN_KERNEL_SYMBOL, SCALAR_KERNEL_SYMBOL)}
     log(f"timing sw_pair at lx={MAIN_LX} ly={MAIN_LY}, {2 * MAIN_READS} pairs "
@@ -2117,9 +2366,27 @@ def phase_timing(rng, sass, clock_hz, rate_path):
         f"{sass['cell_dpx']:.4f} DPX per cell take {dpx_ms:.4f} ms "
         f"({100 * dpx_ms / ms:.1f} % of the packed route's time); "
         "library_ms null: no PyTorch call computes Smith-Waterman")
+    log("timing sw_pair read formats on the packed route, the same reads, "
+        "in turns (p2, p4, dense, dense, p4, p2): "
+        + "; ".join(f"{f} {form_ms[f]:.4f} ms ("
+                    + ", ".join(f"{t:.4f}" for t in times[f]) + ")"
+                    for f in formats)
+        + f"; 4-bit on 2-bit "
+        f"{100 * (form_ms['p4'] / form_ms['p2'] - 1):+.2f} %")
+    log(f"timing sw_pair 4-bit bound: {cells} cells x {sass['cell']:.4f} + "
+        f"{read_bases} read bases x {sass['nibble']:.1f} (the least nibble "
+        f"unpack, the nibble probe's SASS) instructions = {p4_ops_ms:.4f} "
+        f"ms; {p4_bytes} bytes "
+        f"= {p4_bytes_ms:.4f} ms; bound {p4_bound_ms:.4f} ms, "
+        f"{100 * p4_bound_ms / form_ms['p4']:.1f} % of its time")
+    log(f"timing haplotype unpack (sw_torch.unpack4, pad 1, once per "
+        f"bucket): {haps.shape[0]} rows x {MAIN_LY}: {unpack_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=None, scalar_ms=scalar_ms)
+                library_ms=None, scalar_ms=scalar_ms,
+                packed4_ms=form_ms["p4"], dense_ms=form_ms["dense"],
+                packed2_ms=form_ms["p2"], packed4_bound_ms=p4_bound_ms,
+                hap_unpack_ms=unpack_ms)
 
 
 def phase_banded_timing(rng, sass, clock_hz, threads, probes):
@@ -2863,15 +3130,19 @@ def generate_e2e(work):
 
 
 def generate_py_host(work):
-    """Phase 7's --host python dataset as a BAM and a CRAM (a third worker
-    process, from phase 3): (the dataset with "cram" added, seconds)."""
-    from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
+    """Phase 7's --host python dataset as a BAM, a CRAM and the BAM's N
+    copy (a third worker process, from phase 3): (the dataset with "cram"
+    and "bam_n" added, seconds)."""
+    from vartrix_tpu_torch.utils.synth import (SynthConfig, generate_dataset,
+                                               with_n_bases)
 
     t0 = time.perf_counter()
     data = generate_dataset(os.path.join(work, "py_host"),
                             SynthConfig(**PY_HOST_CFG))
     data.pop("genotypes")
     data["cram"], _ = write_cram_of(data)
+    data["bam_n"] = os.path.join(os.path.dirname(data["bam"]), "reads_n.bam")
+    with_n_bases(data["bam"], data["bam_n"], N_READ_FRAC, N_READ_SEED)
     return data, time.perf_counter() - t0
 
 
@@ -2922,6 +3193,7 @@ def phase_e2e(work, data):
         for be, be_args in backends.items():
             sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
             sw_cuda.BAND_LAUNCHES = sw_cuda.INDEX_LAUNCHES = 0
+            reset_routes()
             buckets[0] = 0
             for mode, mode_args in modes.items():
                 if (sw_mode, be) == ("banded", "torch") and \
@@ -2967,7 +3239,9 @@ def phase_e2e(work, data):
             n_buckets[sw_mode, be] = buckets[0]
             log(f"e2e {sw_mode} {be}: launches over the three runs "
                 f"{launches[sw_mode, be]}; banded shape buckets "
-                f"{buckets[0]}")
+                f"{buckets[0]}; read chunks by format "
+                f"{sw_cuda.READ_ROUTE_CHUNKS}, haplotype matrices "
+                f"{sw_cuda.HAP_ROUTE_BUCKETS}")
     for sw_mode, kernels in own.items():
         for be in backends:
             for name, n in launches[sw_mode, be].items():
@@ -3008,12 +3282,109 @@ def phase_e2e(work, data):
             outs, run_launches, index_mats)
 
 
+def reset_routes():
+    """Zeroes ops/sw_cuda's read and haplotype format counts."""
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    for counts in (sw_cuda.READ_ROUTE_CHUNKS, sw_cuda.HAP_ROUTE_BUCKETS):
+        for k in counts:
+            counts[k] = 0
+
+
+def generate_n_reads(data):
+    """Phase 5's N dataset (a worker process, once phase 5's BAM exists):
+    its records rewritten with one base set to N in a seeded N_READ_FRAC
+    of the reads (utils/synth.with_n_bases): (the dataset with that BAM,
+    reads changed, seconds taken)."""
+    from vartrix_tpu_torch.utils.synth import with_n_bases
+
+    t0 = time.perf_counter()
+    bam = os.path.join(os.path.dirname(data["bam"]), "reads_n.bam")
+    n = with_n_bases(data["bam"], bam, N_READ_FRAC, N_READ_SEED)
+    return dict(data, bam=bam), n, time.perf_counter() - t0
+
+
+def phase_n_reads(work, data):
+    """Phase 5's N dataset in full consensus, in-process: --backend cuda
+    at PREFETCH_DEPTH 2, 0, 2, 0 unprofiled and then under --profile-dir
+    (score's idle share, the trace's H2D bytes and copies), and --backend
+    torch; every matrix CSR-equal to the torch run's, and every cuda run
+    must ship 4-bit read chunks. Returns the sw_pair launches and the
+    read and haplotype format counts of the first cuda run, and score's
+    idle shares by depth."""
+    from vartrix_tpu_torch import driver
+    from vartrix_tpu_torch.ops import sw_cuda
+
+    default = sw_cuda.PREFETCH_DEPTH
+
+    def run(tag, extra, depth=default, profile=False):
+        sw_cuda.PREFETCH_DEPTH = depth
+        reset_routes()
+        out = os.path.join(work, f"n_{tag}.mtx")
+        mj = os.path.join(work, f"n_{tag}.json")
+        argv = ["-v", data["vcf"], "-b", data["bam"], "-f", data["fasta"],
+                "-c", data["barcodes"], "-o", out, "-s", "consensus",
+                "--threads", str(os.cpu_count() or 1), "--metrics-json",
+                mj] + extra
+        prof = os.path.join(work, f"n_{tag}_trace")
+        if profile:
+            argv += ["--profile-dir", prof]
+        t0 = time.perf_counter()
+        driver._main(argv)
+        dt = time.perf_counter() - t0
+        with open(mj) as f:
+            payload = json.load(f)
+        routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
+        haps = dict(sw_cuda.HAP_ROUTE_BUCKETS)
+        log(f"n-reads {tag} (prefetch depth {depth}): {dt:.3f}s, score "
+            f"{payload['phase_seconds']['score']} s, launches "
+            f"{payload['kernel_launches']}, read chunks by format {routes}, "
+            f"haplotype matrices {haps}, phases {payload['phase_seconds']}")
+        summary = None
+        if profile:
+            summary = read_trace(os.path.join(prof, "score.pt.trace.json"),
+                                 "score",
+                                 payload["kernel_launches"]["sw_pair"])
+        if extra[1] == "cuda" and not routes["p4"]:
+            fail(f"n-reads {tag}: no read chunk shipped 4-bit")
+        return out, payload, routes, haps, summary
+
+    try:
+        plain, _, plain_routes, _, _ = run(
+            "torch", ["--backend", "torch", "--device", "cuda"])
+        first = None
+        shares = collections.defaultdict(list)
+        for profile in (False, True):
+            for turn, depth in enumerate((2, 0, 2, 0)):
+                tag = (f"cuda_{turn}_d{depth}"
+                       + ("_profiled" if profile else ""))
+                out, payload, routes, haps, summary = run(
+                    tag, ["--backend", "cuda"], depth, profile)
+                first = first or (payload, routes, haps)
+                ok = csr_equal(out, plain)
+                log(f"n-reads {tag}: cuda == torch (CSR): {ok}")
+                if not ok:
+                    fail(f"n-reads {tag}: the kernel's matrix differs from "
+                         "the plain version's")
+                if summary is not None:
+                    shares[depth].append(summary["idle_share"])
+    finally:
+        sw_cuda.PREFETCH_DEPTH = default
+    log(f"n-reads: score's idle share by prefetch depth, in turns "
+        f"(2, 0, 2, 0): {dict(shares)}; the torch run's read chunks "
+        f"{plain_routes}")
+    payload, routes, haps = first
+    return payload["kernel_launches"]["sw_pair"], routes, haps, dict(shares)
+
+
 def phase_cram_python(work, data, py, outs, run_launches):
     """Phase 7: phase 5's CRAM on the native host (full consensus with
     --fetch whole and auto, banded consensus), each CSR-equal to phase 5's
     BAM run of its mode with the same launches and libcramio's decode;
-    then --host python on the 50,000-read BAM and CRAM (full consensus)
-    and BAM (banded consensus), each CSR-equal to the native host's run on
+    then --host python on the 50,000-read BAM and CRAM (full consensus),
+    BAM (banded consensus) and the BAM's N copy (full consensus: the
+    native host must ship 4-bit read chunks and the Python host none
+    through host_chunks), each CSR-equal to the native host's run on
     the same file, and the 50,000-read CRAM's .crai rebuilt by python -m
     vartrix_tpu_torch.io.bai. Every launch counter is zeroed just before
     each run and read just after; returns the Python host's launches
@@ -3076,11 +3447,22 @@ def phase_cram_python(work, data, py, outs, run_launches):
         for tag, reads, extra in (
                 ("py_bam_full", py["bam"], ()),
                 ("py_cram_full", py["cram"], ()),
-                ("py_bam_banded", py["bam"], ("--sw-mode", "banded"))):
+                ("py_bam_banded", py["bam"], ("--sw-mode", "banded")),
+                ("py_bam_n_full", py["bam_n"], ())):
+            reset_routes()
             base, _, _ = run(f"{tag}_native", py, reads, *extra)
+            native_routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
+            reset_routes()
             out, payload, n = run(f"{tag}_python", py, reads, "--host",
                                   "python", *extra)
             same(f"{tag}_python", out, base)
+            if tag == "py_bam_n_full":
+                routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
+                log(f"cram/python {tag}: read chunks by format, native host "
+                    f"{native_routes}, Python host {routes}")
+                if not native_routes["p4"] or any(routes.values()):
+                    fail(f"phase 7 {tag}: the native host must ship 4-bit "
+                         "read chunks and the Python host dense rows")
             if payload["config"]["host"] != "python":
                 fail(f"phase 7 {tag}: the run did not take the Python host")
             if "banded" in extra:
@@ -3218,13 +3600,26 @@ def phase_devices(work, data, outs, device="cuda"):
     provider.shape = x.shape
     provider.packed2 = lambda start, n: (xp[start : start + n],
                                          lens[start : start + n])
+    x4 = x.copy()
+    x4[rng.random(x4.shape) < 0.001] = ord("N")
+    x4[x == 0] = 0
+    xp4, lens4 = pack4(x4)
+
+    def provider4(start, n):
+        return x4[start : start + n]
+
+    provider4.shape = x4.shape
+    provider4.packed = lambda start, n: (xp4[start : start + n],
+                                         lens4[start : start + n])
     two = [torch.device(device, 0) if kernel else torch.device("cpu")] * 2
     single = sw_cuda.SwBackend(device, kernel)
     split = sw_cuda.MeshSwBackend(two, kernel)
     for name, fn in (("scores", "pair_chained"),
                      ("codes", "pair_calls_chained")):
-        for form, reads in (("dense", x), ("2bit", provider)):
-            want = getattr(single, fn)(reads, haps, ir, ia)
+        for form, reads in (("dense", x), ("2bit", provider),
+                            ("4bit", provider4)):
+            want = getattr(single, fn)(x4 if form == "4bit" else reads,
+                                       haps, ir, ia)
             got = getattr(split, fn)(reads, haps, ir, ia)
             ok = got.dtype == want.dtype and np.array_equal(got, want)
             log(f"devices MeshSwBackend(2 parts on {two[0]}) {name} {form}, "
@@ -3330,9 +3725,25 @@ def read_trace(path, phase, sw_pair_launches):
     the trace holds no sw_pair kernel or fewer than the run launched."""
     from vartrix_tpu_torch.utils import trace
 
-    s = trace.device_summary(trace.load_events(path), phase)
+    events = trace.load_events(path)
+    s = trace.device_summary(events, phase)
     log(f"trace {phase}: window {s['window_us'] / 1e3:.3f} ms, device busy "
-        f"{s['busy_us'] / 1e3:.3f} ms, idle share {s['idle_share']:.4f}")
+        f"{s['busy_us'] / 1e3:.3f} ms, idle share {s['idle_share']:.4f}; "
+        f"the window's host time before the device's first interval "
+        f"{s['lead_us'] / 1e3:.3f} ms, after its last "
+        f"{s['tail_us'] / 1e3:.3f} ms")
+    spans = [e for e in events if e.get("name") == trace.span_name(phase)
+             and e.get("ph") == "X"]
+    w0 = min(float(e["ts"]) for e in spans)
+    w1 = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    out = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") == "gpu_memcpy"
+           and not (float(e["ts"]) < w1 and float(e["ts"]) + float(e["dur"])
+                    > w0)]
+    log(f"trace {phase}:   copies outside the window: {len(out)}"
+        + "".join(f"; {e['name']} {e.get('args', {}).get('bytes')} B at "
+                  f"{(float(e['ts']) - w0) / 1e3:+.3f} ms"
+                  for e in out[:8]))
     for name, k in sorted(s["kernels"].items(), key=lambda kv: -kv[1]["us"]):
         short = re.sub(r"\((?!anonymous)[^()]*\)$", "", name)
         log(f"trace {phase}:   kernel {short}: {k['n']} launches, "
@@ -4085,9 +4496,10 @@ def main():
     os.makedirs(work)
     try:
         # workers: phase 5's dataset, phase 6's, phase 7's Python host
-        # dataset; then phase 5's BAM written as a CRAM beside phases 4-6
+        # dataset; then phase 5's BAM written as a CRAM and with N bases
+        # beside phases 4-6
         with ProcessPoolExecutor(
-                3, mp_context=multiprocessing.get_context("spawn")) as pool:
+                4, mp_context=multiprocessing.get_context("spawn")) as pool:
             e2e_data = pool.submit(generate_e2e, work)
             sparse_data = pool.submit(generate_sparse, work)
             py_data = pool.submit(generate_py_host, work)
@@ -4104,6 +4516,7 @@ def main():
             log(f"e2e: generated {data['n_reads']} reads in {gen_s:.1f}s (in "
                 "a worker process, during phase 3)")
             e2e_cram = pool.submit(write_cram_of, data)
+            n_data = pool.submit(generate_n_reads, data)
             timing = phase_timing(rng, sass, clock_hz, paths[5])
             (band_timing, banded_timing, index_timing, band_rows_timing,
              banded_rows_timing) = phase_banded_timing(rng, sass, clock_hz,
@@ -4117,6 +4530,14 @@ def main():
             launches, outs, run_launches, index_mats = phase_e2e(work, data)
             done("e2e")
             index_timing["buckets"] = time_buckets(index_mats, paths[9])
+            t0 = time.perf_counter()
+            n_reads, n_changed, n_s = n_data.result()
+            log(f"n-reads: {n_changed} of phase 5's {data['n_reads']} reads "
+                f"given one N in {n_s:.1f}s (a worker process, from phase "
+                f"4; waited {time.perf_counter() - t0:.1f}s)")
+            n_launches, n_routes, n_haps, n_shares = phase_n_reads(work,
+                                                                   n_reads)
+            done("n-reads")
             phase_cli(work)
             phase_sparse(work, sparse)
             done("sparse")
@@ -4193,6 +4614,12 @@ def main():
             if t["share_of_bound"] is None:
                 record["kernels"][-1]["share_of_bound_note"] = t[
                     "share_note"]
+        if name == "sw_pair":  # its read formats; the N dataset's routes
+            record["kernels"][-1].update(
+                {k: t[k] for k in ("packed4_ms", "packed2_ms", "dense_ms",
+                                   "packed4_bound_ms", "hap_unpack_ms")},
+                n_reads_launches=n_launches, read_route_chunks=n_routes,
+                hap_route_buckets=n_haps, n_reads_idle_share=n_shares)
         if name == "sw_pair":  # its plain-row route on the Python host
             record["kernels"][-1]["python_host_launches"] = {
                 k: v for k, v in launches.items() if k.startswith("sw_pair_")}

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of vartrix_tpu_torch, and not
-chip_smoke.py, imports jax or vartrix_tpu; importing the driver leaves jax
+"""The port stands alone: no module of vartrix_tpu_torch, and neither
+chip_smoke.py nor chip_ab_dispatch.py, imports jax or vartrix_tpu; importing the driver leaves jax
 unloaded; the native library is the port's own build; and a run never
 falls back to the CPU on its own."""
 
@@ -23,7 +23,9 @@ PKG = os.path.dirname(vartrix_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG)
 SOURCES = sorted(
     [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
-     if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")])
+     if f.endswith(".py")]
+    + [os.path.join(ROOT, f)
+       for f in ("chip_smoke.py", "chip_ab_dispatch.py")])
 FORBIDDEN = ("jax", "jaxlib", "vartrix_tpu")
 
 

@@ -76,9 +76,10 @@ def test_mesh_backend_equal_to_single_device(monkeypatch, n_parts):
                                  kernel=False)
     seen = []
     for be in mesh.parts:
-        def spy(reads, hap, i_r, i_a, lens, _fn=be._pair_calls):
+        def spy(reads, hap, i_r, i_a, lens, read_bits,
+                _fn=be._pair_calls):
             seen.append((reads.shape[0], lens is not None))
-            return _fn(reads, hap, i_r, i_a, lens)
+            return _fn(reads, hap, i_r, i_a, lens, read_bits=read_bits)
         be._pair_calls = spy
     want = single.pair_calls_chained(_provider(x), haps, ir, ia)
     got = mesh.pair_calls_chained(_provider(x), haps, ir, ia)

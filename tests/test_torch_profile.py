@@ -83,8 +83,13 @@ def test_device_summary_on_hand_made_events():
     assert s["copies"]["HtoD"] == {"n": 1, "us": 20.0, "bytes": 4096}
     assert s["copies"]["DtoH"] == {"n": 1, "us": 10.0, "bytes": 512}
     assert s["memset_us"] == 5
+    # the window's host time before the first device interval (the kernel
+    # at 200) and after the last (clipped at the window's end)
+    assert s["lead_us"] == 100 and s["tail_us"] == 0
     with pytest.raises(ValueError, match="vartrix::stream"):
         trace.device_summary(events, "stream")
+    idle = trace.device_summary(events[:3], "score")
+    assert idle["lead_us"] == idle["tail_us"] == idle["window_us"] == 1000
 
 
 @pytest.mark.parametrize("intervals,want", [

@@ -23,7 +23,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..io.bam_native import (ColumnarBam, gather_padded,
-                             gather_padded_packed2)
+                             gather_padded_packed, gather_padded_packed2)
+from ..ops.sw_torch import PackedHaps
 from ..utils.metrics import Metrics
 from .pipeline import PipelineArgs, VariantWork
 
@@ -205,19 +206,25 @@ def collect_reads_fast(
 
 def _read_provider(cbam: ColumnarBam, rows: np.ndarray, lx: int):
     """Read source for one shape bucket: a chunk callable `(start, n) ->
-    uint8 [n, lx]` with `.shape == (len(rows), lx)` and `.packed2(start,
-    n)`, the 2-bit A/C/G/T gather (None when a chunk holds another byte),
-    so the backend gathers chunk k+1 on the host while chunk k scores on
-    the device and the bucket never materializes whole."""
+    uint8 [n, lx]` with `.shape == (len(rows), lx)`, `.packed2(start, n)`,
+    the 2-bit A/C/G/T gather, and `.packed(start, n)`, the 4-bit gather of
+    BAM's 16 symbols (each None when a chunk holds another byte), so the
+    backend gathers chunks ahead of the device and the bucket never
+    materializes whole."""
 
     def x(start, n):
         return gather_reads(cbam, rows[start : start + n], lx)
+
+    def packed(start, n):
+        return gather_padded_packed(cbam.seq_pool, cbam.seq_off,
+                                    rows[start : start + n], lx)
 
     def packed2(start, n):
         return gather_padded_packed2(cbam.seq_pool, cbam.seq_off,
                                      rows[start : start + n], lx)
 
     x.shape = (len(rows), lx)
+    x.packed = packed
     x.packed2 = packed2
     return x
 
@@ -288,6 +295,7 @@ def _score_all_pairs(
         hap_ids[1::2] = 2 * uniq_v + 1
         hap_mat = _gather_padded_pool(hap_pool, hap_off, hap_ids, ly,
                                       pad_byte=1)
+        hap_mat = _maybe_pack_haps(hap_pool, hap_off, hap_ids, ly, hap_mat)
         x = _read_provider(cbam, t_read[sel], lx)
         idx_ref = (2 * v_inv).astype(np.int32)
         idx_alt = (2 * v_inv + 1).astype(np.int32)
@@ -296,6 +304,18 @@ def _score_all_pairs(
     for wi, start, count in blocks:
         results[wi][...] = flat[start : start + count]
     return results
+
+
+def _maybe_pack_haps(hap_pool: np.ndarray, hap_off: np.ndarray,
+                     hap_ids: np.ndarray, ly: int, hap_mat: np.ndarray):
+    """The bucket's haplotype matrix as a PackedHaps (4-bit rows and
+    lengths beside the dense matrix) when ly is even and every haplotype
+    byte lies in BAM's 16 symbols; else the dense matrix itself (a
+    lowercase soft-masked base declines the whole bucket)."""
+    got = gather_padded_packed(hap_pool, hap_off, hap_ids, ly)
+    if got is None:
+        return hap_mat
+    return PackedHaps(got[0], got[1], hap_mat)
 
 
 def _gather_padded_pool(pool: np.ndarray, off: np.ndarray, ids: np.ndarray,

@@ -14,9 +14,17 @@
 // The chaining and the 128-lane layout only recover wavefront ramp waste on
 // the TPU. Here a thread sweeps its problems' haplotype columns itself and
 // stops at their true lengths. The device glue of the jitted entries is
-// fused into the load and store stages: the 2-bit read unpack (_unpack2),
-// the gather of haplotype rows by index, and the reduction of each read's
-// (ref, alt) scores to one int8 call code.
+// fused into the load and store stages: the 2-bit and 4-bit read unpacks
+// (_unpack2, and _unpack4 of K3's 4-bit entries _sw_pair_quad_calls_packed
+// and _packed2), the gather of haplotype rows by index, and the reduction
+// of each read's (ref, alt) scores to one int8 call code.
+//
+// Three read formats (ReadFormat), each a template instantiation: dense
+// bytes (pad 0; a read's length is its last non-zero byte), 2-bit A/C/G/T
+// codes and 4-bit BAM nibble codes of "=ACMGRSVTWYHKDBN" (both with their
+// lengths). A packed base is unpacked where the strip loads its read rows,
+// once per read row and strip, outside the column loop: no dense copy of
+// the reads is written.
 //
 // Recurrence (Gotoh, same as ops/sw_torch.py and the reference's NumPy
 // oracle): MATCH +1, MISMATCH -5, a gap of length L costs -5 - L.
@@ -109,26 +117,39 @@ constexpr int kWord32Max = 65535;   // word32: min(lx, ly) <= this
 
 enum Route { kPackedRoute = 0, kWord32Route = 1, kWord64Route = 2 };
 
+// The read formats, by their code in sw_pair_launch.
+enum ReadFormat { kDense = 0, kBits2 = 1, kBits4 = 2 };
+
 // 'A', 'C', 'G', 'T' for 2-bit codes 0..3 (gio_gather_padded_packed2)
 constexpr uint32_t kAcgt = 'A' | ('C' << 8) | ('G' << 16) | ('T' << 24);
+// "=ACMGRSV" and "TWYHKDBN" for 4-bit codes 0..7 and 8..15, a byte each,
+// lowest first (gio_gather_padded_packed, BAM's seq_nt16)
+constexpr unsigned long long kNt16Lo = 0x565352474d43413dULL;
+constexpr unsigned long long kNt16Hi = 0x4e42444b48595754ULL;
 
-template <bool kPacked2>
+template <int kFormat>
 __device__ __forceinline__ int read_base(const uint8_t* __restrict__ row,
                                          int i, int len) {
   if (i >= len) return 0;
-  if (kPacked2) {
+  if (kFormat == kBits2) {
     const int code = (__ldg(row + (i >> 2)) >> ((i & 3) * 2)) & 3;
     return (kAcgt >> (code * 8)) & 0xff;
+  }
+  if (kFormat == kBits4) {
+    const int code = (__ldg(row + (i >> 1)) >> (i & 1 ? 0 : 4)) & 15;
+    const unsigned long long w = code & 8 ? kNt16Hi : kNt16Lo;
+    return static_cast<int>((w >> ((code & 7) * 8)) & 0xff);
   }
   return __ldg(row + i);
 }
 
-// True length of a read: its length entry (2-bit) or its last non-pad byte.
-template <bool kPacked2>
+// True length of a read: its length entry (packed formats) or its last
+// non-pad byte.
+template <int kFormat>
 __device__ __forceinline__ int read_length(const uint8_t* __restrict__ row,
                                            const int32_t* __restrict__ lens,
                                            int read, int lx) {
-  if (kPacked2) return min(max(__ldg(lens + read), 0), lx);
+  if (kFormat != kDense) return min(max(__ldg(lens + read), 0), lx);
   int n = lx;
   while (n > 0 && __ldg(row + n - 1) == 0) --n;
   return n;
@@ -181,7 +202,7 @@ __device__ __forceinline__ uint32_t hap_word(const uint8_t* __restrict__ h0,
 // haplotype rows hrow0 / hrow1, over n_x read rows and n_y columns (the
 // longer of each pair). col: this thread's scratch column, stride between
 // haplotype positions (at least n_y rounded up to kCols of them).
-template <bool kPacked2>
+template <int kFormat>
 __device__ uint32_t sw_pair16x2(const uint8_t* __restrict__ row0, int len0,
                                 const uint8_t* __restrict__ row1, int len1,
                                 bool shared,
@@ -198,8 +219,8 @@ __device__ uint32_t sw_pair16x2(const uint8_t* __restrict__ row0, int len0,
 #pragma unroll
     for (int r = 0; r < kPackedStrip; ++r) {
       const int i = s * kPackedStrip + r;
-      const uint32_t b0 = read_base<kPacked2>(row0, i, len0);
-      const uint32_t b1 = shared ? b0 : read_base<kPacked2>(row1, i, len1);
+      const uint32_t b0 = read_base<kFormat>(row0, i, len0);
+      const uint32_t b1 = shared ? b0 : read_base<kFormat>(row1, i, len1);
       xs[r] = (b0 | (b1 << 16)) << 3;
       g[r] = kPm6;   // H[i][-1] - 6
       e[r] = kPNeg;  // E[i][-1]
@@ -267,7 +288,7 @@ __device__ __forceinline__ int high_score(uint32_t g) {
 // idx_alt (high half); per_read == 1: reads 2k and 2k + 1 against
 // idx_ref[2k] and idx_ref[2k + 1] (an odd last read pairs with an empty
 // problem). Outputs as sw_pair_kernel.
-template <bool kPacked2, bool kCodes>
+template <int kFormat, bool kCodes>
 __global__ void __launch_bounds__(kThreads)
 sw_pair16x2_kernel(const uint8_t* __restrict__ reads,
                    const int32_t* __restrict__ read_lens, int n_reads,
@@ -286,9 +307,9 @@ sw_pair16x2_kernel(const uint8_t* __restrict__ reads,
   const int read1 = shared || !has1 ? read0 : read0 + 1;
   const uint8_t* row0 = reads + static_cast<size_t>(read0) * row_bytes;
   const uint8_t* row1 = reads + static_cast<size_t>(read1) * row_bytes;
-  const int len0 = read_length<kPacked2>(row0, read_lens, read0, lx);
+  const int len0 = read_length<kFormat>(row0, read_lens, read0, lx);
   const int len1 = shared ? len0
-                          : (has1 ? read_length<kPacked2>(row1, read_lens,
+                          : (has1 ? read_length<kFormat>(row1, read_lens,
                                                           read1, lx)
                                   : 0);
   const int h0 = __ldg(idx_ref + read0);
@@ -300,7 +321,7 @@ sw_pair16x2_kernel(const uint8_t* __restrict__ reads,
                       has1 ? hap_length(hrow1, ly) : 0);
   uint32_t best = kPm6;
   if (n_x > 0 && n_y > 0) {
-    best = sw_pair16x2<kPacked2>(row0, len0, row1, len1, shared, hrow0,
+    best = sw_pair16x2<kFormat>(row0, len0, row1, len1, shared, hrow0,
                                  hrow1, n_x, n_y, scratch + k, n_pairs);
   }
   const int s0 = low_score(best), s1 = high_score(best);
@@ -341,7 +362,7 @@ constexpr int kAhead = 4;
 // Best local score of one read (row, len_x bases) against one haplotype
 // (hrow, len_y bases). col: this problem's scratch column, stride between
 // haplotype positions.
-template <bool kPacked2, bool kWide>
+template <int kFormat, bool kWide>
 __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
                           const uint8_t* __restrict__ hrow, int len_y,
                           typename Word<kWide>::T* __restrict__ col,
@@ -355,7 +376,7 @@ __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
     int xs[kStrip], hl[kStrip], e[kStrip];
 #pragma unroll
     for (int r = 0; r < kStrip; ++r) {
-      xs[r] = read_base<kPacked2>(row, s * kStrip + r, len_x);
+      xs[r] = read_base<kFormat>(row, s * kStrip + r, len_x);
       hl[r] = 0;     // H[i][-1]
       e[r] = kNeg;   // E[i][-1]
     }
@@ -411,7 +432,7 @@ __device__ int sw_problem(const uint8_t* __restrict__ row, int len_x,
 // idx_alt (p odd); per_read == 1: read p against idx_ref[p].
 // kCodes (per_read == 2 only): one int8 call code per read, else int32
 // scores [per_read][score_stride] (columns [0, n_reads) written).
-template <bool kPacked2, bool kCodes, bool kWide>
+template <int kFormat, bool kCodes, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 sw_pair_kernel(const uint8_t* __restrict__ reads,
                const int32_t* __restrict__ read_lens, int n_reads, int lx,
@@ -429,12 +450,12 @@ sw_pair_kernel(const uint8_t* __restrict__ reads,
   int best = 0;
   if (live) {
     const uint8_t* row = reads + static_cast<size_t>(read) * row_bytes;
-    const int len_x = read_length<kPacked2>(row, read_lens, read, lx);
+    const int len_x = read_length<kFormat>(row, read_lens, read, lx);
     const int hidx = __ldg((which ? idx_alt : idx_ref) + read);
     const uint8_t* hrow = haps + static_cast<size_t>(hidx) * ly;
     const int len_y = hap_length(hrow, ly);
     if (len_x > 0 && len_y > 0) {
-      best = sw_problem<kPacked2, kWide>(row, len_x, hrow, len_y,
+      best = sw_problem<kFormat, kWide>(row, len_x, hrow, len_y,
                                          scratch + p, n_prob);
     }
   }
@@ -473,34 +494,43 @@ unsigned blocks_for(size_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
-template <bool kPacked2, bool kCodes>
+template <int kFormat, bool kCodes>
 void launch_packed(const Args& a, cudaStream_t stream) {
   const size_t n_prob = static_cast<size_t>(a.n_reads) * a.per_read;
-  sw_pair16x2_kernel<kPacked2, kCodes>
+  sw_pair16x2_kernel<kFormat, kCodes>
       <<<blocks_for((n_prob + 1) / 2), kThreads, 0, stream>>>(
           a.reads, a.read_lens, a.n_reads, a.lx, a.row_bytes, a.haps, a.ly,
           a.idx_ref, a.idx_alt, a.per_read, a.scores, a.score_stride,
           a.codes, static_cast<uint2*>(a.scratch));
 }
 
-template <bool kPacked2, bool kCodes, bool kWide>
+template <int kFormat, bool kCodes, bool kWide>
 void launch_scalar(const Args& a, cudaStream_t stream) {
   const size_t n_prob = static_cast<size_t>(a.n_reads) * a.per_read;
-  sw_pair_kernel<kPacked2, kCodes, kWide>
+  sw_pair_kernel<kFormat, kCodes, kWide>
       <<<blocks_for(n_prob), kThreads, 0, stream>>>(
           a.reads, a.read_lens, a.n_reads, a.lx, a.row_bytes, a.haps, a.ly,
           a.idx_ref, a.idx_alt, a.per_read, a.scores, a.score_stride,
           a.codes, static_cast<typename Word<kWide>::T*>(a.scratch));
 }
 
-template <bool kPacked2, bool kCodes>
+template <int kFormat, bool kCodes>
 void launch_route(int route, const Args& a, cudaStream_t stream) {
   if (route == kPackedRoute) {
-    launch_packed<kPacked2, kCodes>(a, stream);
+    launch_packed<kFormat, kCodes>(a, stream);
   } else if (route == kWord32Route) {
-    launch_scalar<kPacked2, kCodes, false>(a, stream);
+    launch_scalar<kFormat, kCodes, false>(a, stream);
   } else {
-    launch_scalar<kPacked2, kCodes, true>(a, stream);
+    launch_scalar<kFormat, kCodes, true>(a, stream);
+  }
+}
+
+template <int kFormat>
+void launch_format(int route, const Args& a, cudaStream_t stream) {
+  if (a.codes) {
+    launch_route<kFormat, true>(route, a, stream);
+  } else {
+    launch_route<kFormat, false>(route, a, stream);
   }
 }
 
@@ -509,9 +539,11 @@ void launch_route(int route, const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Launches the kernel on `stream`; returns cudaGetLastError() (0 = ok), or
-// cudaErrorInvalidValue when `route` cannot hold min(lx, ly).
-// reads: uint8 [n_reads, lx] (packed2 = 0) or [n_reads, lx / 4] 2-bit codes
-// with int32 read_lens [n_reads] (packed2 = 1). haps: uint8 [*, ly].
+// cudaErrorInvalidValue when `route` cannot hold min(lx, ly) or
+// `read_format` is none of ReadFormat.
+// reads, by read_format: 0 uint8 [n_reads, lx]; 1 [n_reads, lx / 4] 2-bit
+// codes; 2 [n_reads, lx / 2] 4-bit codes; the packed formats with int32
+// read_lens [n_reads]. haps: uint8 [*, ly].
 // Exactly one of scores (int32 [per_read, score_stride], columns [0,
 // n_reads) written) and codes (int8 [n_reads], per_read = 2) is non-null.
 // route: 0 packed (min(lx, ly) <= 32,767; scratch uint2 [ly rounded up to
@@ -520,30 +552,36 @@ extern "C" {
 // per_read]). No scratch is needed when the reads fit one strip: lx <= 32
 // (packed) or 16 (word32, word64).
 int sw_pair_launch(const void* reads, const void* read_lens, int n_reads,
-                   int lx, int packed2, const void* haps, int ly,
+                   int lx, int read_format, const void* haps, int ly,
                    const void* idx_ref, const void* idx_alt, int per_read,
                    void* scores, int score_stride, void* codes,
                    void* scratch, int route, void* stream) {
   const int width = min(lx, ly);
   if ((route == kPackedRoute && width > kPackedMax) ||
       (route == kWord32Route && width > kWord32Max) || route < kPackedRoute ||
-      route > kWord64Route) {
+      route > kWord64Route || read_format < kDense ||
+      read_format > kBits4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (static_cast<size_t>(n_reads) * per_read == 0) return 0;
   const Args a{static_cast<const uint8_t*>(reads),
                static_cast<const int32_t*>(read_lens), n_reads, lx,
-               packed2 ? lx / 4 : lx, static_cast<const uint8_t*>(haps), ly,
+               read_format == kBits2   ? lx / 4
+               : read_format == kBits4 ? lx / 2
+                                       : lx,
+               static_cast<const uint8_t*>(haps), ly,
                static_cast<const int32_t*>(idx_ref),
                static_cast<const int32_t*>(idx_alt), per_read,
                static_cast<int32_t*>(scores), score_stride,
                static_cast<int8_t*>(codes), scratch};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* go = packed2 ? (codes ? &launch_route<true, true>
-                              : &launch_route<true, false>)
-                     : (codes ? &launch_route<false, true>
-                              : &launch_route<false, false>);
-  go(route, a, st);
+  if (read_format == kBits2) {
+    launch_format<kBits2>(route, a, st);
+  } else if (read_format == kBits4) {
+    launch_format<kBits4>(route, a, st);
+  } else {
+    launch_format<kDense>(route, a, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,6 +83,10 @@ def get_lib() -> ctypes.CDLL:
         lib.gio_gather_padded.argtypes = [
             _U8P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int32, _U8P,
             ctypes.c_int]
+        lib.gio_gather_padded_packed.restype = ctypes.c_int32
+        lib.gio_gather_padded_packed.argtypes = [
+            _U8P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int32, _U8P,
+            _I32P, ctypes.c_int]
         lib.gio_gather_padded_packed2.restype = ctypes.c_int32
         lib.gio_gather_padded_packed2.argtypes = [
             _U8P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int32, _U8P,
@@ -204,6 +208,32 @@ def gather_padded(seq_pool: np.ndarray, seq_off: np.ndarray,
         ctypes.c_int32(lx), out.ctypes.data_as(_U8P),
         ctypes.c_int(_threads(n_threads)))
     return out
+
+
+def gather_padded_packed(seq_pool: np.ndarray, seq_off: np.ndarray,
+                         read_ids: np.ndarray, lx: int, n_threads: int = 0):
+    """Threaded 4-bit packed gather: ([n, lx//2] uint8, two BAM nibble
+    codes of `=ACMGRSVTWYHKDBN` per byte, high nibble first, [n] int32
+    lengths), or None when lx is odd or any gathered byte lies outside
+    those 16 symbols (the caller ships dense bytes)."""
+    if lx % 2:
+        return None
+    lib = get_lib()
+    read_ids = np.ascontiguousarray(read_ids, dtype=np.int64)
+    out = np.empty((len(read_ids), lx // 2), dtype=np.uint8)
+    lens = np.empty(len(read_ids), dtype=np.int32)
+    if len(read_ids) == 0:
+        return out, lens
+    pool = np.ascontiguousarray(seq_pool, dtype=np.uint8)
+    off = np.ascontiguousarray(seq_off, dtype=np.int64)
+    rc = lib.gio_gather_padded_packed(
+        pool.ctypes.data_as(_U8P), off.ctypes.data_as(_I64P),
+        read_ids.ctypes.data_as(_I64P), ctypes.c_int64(len(read_ids)),
+        ctypes.c_int32(lx), out.ctypes.data_as(_U8P),
+        lens.ctypes.data_as(_I32P), ctypes.c_int(_threads(n_threads)))
+    if rc != 0:
+        return None
+    return out, lens
 
 
 def gather_padded_packed2(seq_pool: np.ndarray, seq_off: np.ndarray,

@@ -24,11 +24,20 @@ a wrapper given no idx_alt takes plain rows.
 scores plain (x, y) rows (core/pipeline.score_all, the Python host path),
 `.pair_chained` returns (ref, alt) scores and `.pair_calls_chained` (the
 native host path's default route) returns one int8 call code per read. It
-chunks each shape bucket into launches of CHUNK_READS reads, shipping reads
-as 2-bit codes while every read of the bucket is A/C/G/T and as dense bytes
-from the first chunk that is not. `MeshSwBackend` (--mesh-devices) has the
-same contract and splits each chunk's reads over several devices, one
-SwBackend each. `BandedSwBackend` (--sw-mode banded)
+is the JAX package's chunk dispatcher (`_chunked_pair_dispatch`): it cuts
+each shape bucket into launches of CHUNK_READS reads and ships reads in
+three formats, 2-bit A/C/G/T codes while every chunk so far is A/C/G/T,
+4-bit BAM nibble codes from the first chunk that is not, and dense bytes
+from the first chunk the 4-bit gather declines (host_chunks); the kernel
+unpacks either code on its read load. A bucket's haplotypes (a PackedHaps)
+ship 4-bit and are unpacked on the device once per bucket (device_haps).
+One producer thread gathers and packs chunks up to PREFETCH_DEPTH ahead
+(prefetched); the launching thread copies them to the device without a
+stream synchronisation and launches in chunk order. The JAX package's second
+knob, dispatch threads that keep two chunks in flight, has no counterpart:
+the stream's own queue holds the launches in flight. `MeshSwBackend`
+(--mesh-devices) has the same contract and splits each chunk's reads over
+several devices, one SwBackend each. `BandedSwBackend` (--sw-mode banded)
 scores plain rows when called (banded_batch_scores) and has the default
 pair route: per shape bucket it builds the haplotypes' k-mer index once on
 the device (band_index), then per chunk it ships dense reads and indices,
@@ -38,8 +47,10 @@ them there; no band stage runs on the host.
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from contextlib import nullcontext
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -51,6 +62,10 @@ from .band_torch import BandIndex
 
 # 131,072 (read, haplotype) problems per launch
 CHUNK_READS = 65536
+# chunks one producer thread gathers and packs ahead of the chunk being
+# launched (the JAX package's default); 0 gathers each chunk on the
+# launching thread, between launches
+PREFETCH_DEPTH = 2
 
 # device bytes the band builder's chain pass may take for its match
 # scratch (12 bytes per match) and work rows (8 bytes per read row) per
@@ -86,6 +101,12 @@ BAND_LAUNCHES = 0
 INDEX_LAUNCHES = 0
 BANDED_ROW_LAUNCHES = 0
 BAND_ROW_LAUNCHES = 0
+
+# read chunks shipped in each format (host_chunks) and haplotype matrices
+# shipped 4-bit or dense (device_haps, once per bucket and device) since
+# the last reset; tests and the smoke check read the routes taken
+READ_ROUTE_CHUNKS = {"p2": 0, "p4": 0, "dense": 0}
+HAP_ROUTE_BUCKETS = {"p4": 0, "dense": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _banded_lib: Optional[ctypes.CDLL] = None
@@ -276,10 +297,12 @@ def _output(R: int, per_read: int, codes: bool, dev: torch.device):
 def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
             hap_mat: torch.Tensor, idx_ref: torch.Tensor,
             idx_alt: torch.Tensor, per_read: int, codes: bool,
-            route: Optional[str] = None) -> torch.Tensor:
+            route: Optional[str] = None,
+            read_bits: Optional[int] = 2) -> torch.Tensor:
     """Validate, allocate and launch on the current stream; route: one of
     PAIR_ROUTES (default pair_route(lx, ly)); the kernel refuses a route
-    that cannot hold min(lx, ly)."""
+    that cannot hold min(lx, ly). With read_lens, reads are codes of
+    read_bits bits: lx = 8 x row bytes / read_bits."""
     global LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
@@ -287,10 +310,16 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
     _check(idx_ref, "idx_ref", torch.int32, 1, dev)
     _check(idx_alt, "idx_alt", torch.int32, 1, dev)
     R = reads.shape[0]
-    packed2 = read_lens is not None
-    lx = 4 * reads.shape[1] if packed2 else reads.shape[1]
+    # sw_pair_launch's read_format: 0 dense bytes, 1 2-bit, 2 4-bit codes
+    if read_lens is None:
+        fmt, lx = 0, reads.shape[1]
+    elif read_bits in sw_torch.READ_BITS:
+        fmt, lx = {2: 1, 4: 2}[read_bits], 8 * reads.shape[1] // read_bits
+    else:
+        raise ValueError(f"read_bits must be one of {sw_torch.READ_BITS}, "
+                         f"got {read_bits!r}")
     ly = hap_mat.shape[1]
-    if packed2:
+    if fmt:
         _check(read_lens, "read_lens", torch.int32, 1, dev)
         if read_lens.shape[0] != R:
             raise ValueError("read_lens must have one entry per read")
@@ -311,9 +340,10 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
     for r0, r1 in ranges:
         err = lib.sw_pair_launch(
             reads.data_ptr() + r0 * row_bytes,
-            read_lens.data_ptr() + 4 * r0 if packed2 else None, r1 - r0, lx,
-            int(packed2), hap_mat.data_ptr(), ly, idx_ref.data_ptr() + 4 * r0,
-            idx_alt.data_ptr() + 4 * r0, per_read,
+            read_lens.data_ptr() + 4 * r0 if fmt else None,
+            r1 - r0, lx, fmt, hap_mat.data_ptr(), ly,
+            idx_ref.data_ptr() + 4 * r0, idx_alt.data_ptr() + 4 * r0,
+            per_read,
             scores_ptr + 4 * r0 if scores_ptr else None, R,
             codes_ptr + r0 if codes_ptr else None,
             None if scratch is None else scratch.data_ptr(),
@@ -328,30 +358,34 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
 def pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
                 idx_ref: torch.Tensor, idx_alt: torch.Tensor,
                 read_lens: Optional[torch.Tensor] = None, *,
-                route: Optional[str] = None) -> torch.Tensor:
+                route: Optional[str] = None,
+                read_bits: Optional[int] = 2) -> torch.Tensor:
     """int32 [2, R] (ref, alt) scores. reads: uint8 [R, lx] (pad 0), or
-    [R, lx//4] 2-bit codes with int32 read_lens [R]; hap_mat: uint8
-    [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of hap_mat. route
-    (the kernel only): one of PAIR_ROUTES in place of pair_route(lx, ly),
-    for measurements."""
+    with int32 read_lens [R] codes of read_bits bits per base (read only
+    with read_lens): 2, [R, lx//4] A/C/G/T codes, low bits first; 4, [R,
+    lx//2] BAM nibble codes of `=ACMGRSVTWYHKDBN`, high nibble first.
+    hap_mat: uint8 [H, ly] (pad 1); idx_ref, idx_alt: int32 [R] rows of
+    hap_mat. route (the kernel only): one of PAIR_ROUTES in place of
+    pair_route(lx, ly), for measurements."""
     if reads.device.type == "cpu":
         return sw_torch.pair_scores(reads, hap_mat, idx_ref, idx_alt,
-                                    read_lens)
+                                    read_lens, read_bits)
     return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, False,
-                   route)
+                   route, read_bits)
 
 
 def pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
                idx_ref: torch.Tensor, idx_alt: torch.Tensor,
                read_lens: Optional[torch.Tensor] = None, *,
-               route: Optional[str] = None) -> torch.Tensor:
+               route: Optional[str] = None,
+               read_bits: Optional[int] = 2) -> torch.Tensor:
     """int8 [R] call codes of each read's (ref, alt) scores: 0 dropped
     (both below MIN_SCORE), 1 REF, 2 ALT, 3 tie. Arguments as pair_scores."""
     if reads.device.type == "cpu":
         return sw_torch.pair_calls(reads, hap_mat, idx_ref, idx_alt,
-                                   read_lens)
+                                   read_lens, read_bits)
     return _launch(reads, read_lens, hap_mat, idx_ref, idx_alt, 2, True,
-                   route)
+                   route, read_bits)
 
 
 def batch_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -750,8 +784,10 @@ def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
     return _launch_band(reads, hap_mat, idx_ref, idx_alt, index)
 
 
-def _to(a: np.ndarray, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+def _to(a: np.ndarray, dtype, device,
+        non_blocking: bool = False) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+        device, non_blocking=non_blocking)
 
 
 def _check_indices(n_haps: int, *idxs: np.ndarray) -> None:
@@ -822,45 +858,116 @@ class SwBackend:
 
     def _chunks(self, x, hap_mat, idx_ref, idx_alt, fn: str):
         """Launch the wrapper `fn` names over chunks of CHUNK_READS reads
-        (host_chunks). Outputs stay on the device until the caller gathers
-        them, so chunk k+1's host gather overlaps chunk k's kernel."""
+        (host_chunks), gathered ahead on a producer thread (prefetched).
+        Outputs stay on the device until the caller gathers them."""
         _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
-        hap = _to(hap_mat, np.uint8, self.device)
-        return [_launch_part(getattr(self, fn), self.device, hap, *chunk)
-                for chunk in host_chunks(x, idx_ref, idx_alt)]
+        hap = device_haps(hap_mat, self.device)
+        launch = getattr(self, fn)
+        with prefetched(host_chunks(x, idx_ref, idx_alt),
+                        PREFETCH_DEPTH) as chunks:
+            return [_launch_part(launch, self.device, hap, *chunk)
+                    for chunk in chunks]
+
+
+def device_haps(hap_mat, dev: torch.device) -> torch.Tensor:
+    """A bucket's haplotype matrix as uint8 [H, ly] (pad 1) on `dev`: a
+    PackedHaps ships its 4-bit rows and lengths and is unpacked there
+    (sw_torch.unpack4, once per bucket and device: the JAX package's
+    `_unpack4_jit`, plain XLA there too); any other matrix ships dense."""
+    if isinstance(hap_mat, sw_torch.PackedHaps):
+        HAP_ROUTE_BUCKETS["p4"] += 1
+        return sw_torch.unpack4(_to(hap_mat.packed, np.uint8, dev),
+                                _to(hap_mat.lens, np.int32, dev),
+                                hap_mat.shape[1], pad=1)
+    HAP_ROUTE_BUCKETS["dense"] += 1
+    return _to(hap_mat, np.uint8, dev)
 
 
 def host_chunks(x, idx_ref: np.ndarray, idx_alt: np.ndarray):
-    """Yields each chunk of CHUNK_READS reads as host arrays (reads, their
-    2-bit lengths or None, idx_ref, idx_alt). x is a uint8 [R, lx] array
-    or a provider: `x(start, n)` -> uint8 [n, lx] rows, `.shape` == (R,
-    lx), and optionally `.packed2(start, n)` -> (uint8 [n, lx//4] 2-bit
-    codes, int32 [n] lengths) or None when a chunk holds a base other than
-    A/C/G/T; reads ship dense from that chunk on."""
+    """Yields each chunk of CHUNK_READS reads as host arrays (read_bits,
+    reads, their lengths, idx_ref, idx_alt): read_bits 2 or 4 for codes
+    with lengths, None for dense bytes with lengths None; it adds one to
+    the format's count in READ_ROUTE_CHUNKS. x is a uint8 [R, lx]
+    array or a provider: `x(start, n)` -> uint8 [n, lx] rows, `.shape` ==
+    (R, lx), and optionally `.packed2(start, n)` -> (uint8 [n, lx//4]
+    2-bit codes, int32 [n] lengths) and `.packed(start, n)` -> (uint8 [n,
+    lx//2] 4-bit codes, int32 [n] lengths), each None when the chunk
+    holds a byte its format lacks. The JAX package's chunk preparation
+    (`_chunked_pair_dispatch`'s prep): "p2" while every chunk so far is
+    A/C/G/T (lx % 4 == 0); from the first chunk the 2-bit gather declines,
+    "p4" from that same chunk on (lx even); from the first chunk the 4-bit
+    gather declines, "dense". A format once declined is not tried again.
+    (The JAX package also needs `.packed` before it tries `.packed2`; the
+    pipeline's provider has both.)"""
     R, lx = x.shape
-    packed2 = (callable(x) and getattr(x, "packed2", None) is not None
-               and lx % 4 == 0)
+    provider = callable(x)
+    p2 = provider and getattr(x, "packed2", None) is not None and lx % 4 == 0
+    p4 = provider and getattr(x, "packed", None) is not None and lx % 2 == 0
     for start in range(0, R, CHUNK_READS):
         n = min(CHUNK_READS, R - start)
-        lens = None
-        if packed2:
-            got = x.packed2(start, n)
-            if got is None:
-                packed2 = False  # dense from here on
-            else:
-                xc, lens = got
-        if lens is None:
-            xc = x(start, n) if callable(x) else x[start : start + n]
-        yield (xc, lens, idx_ref[start : start + n],
+        got = None
+        if p2:
+            got, bits = x.packed2(start, n), 2
+            p2 = got is not None
+        if got is None and p4:
+            got, bits = x.packed(start, n), 4
+            p4 = got is not None
+        if got is None:
+            bits = None
+            got = (x(start, n) if provider else x[start : start + n]), None
+        READ_ROUTE_CHUNKS[f"p{bits}" if bits else "dense"] += 1
+        yield (bits, *got, idx_ref[start : start + n],
                idx_alt[start : start + n])
 
 
-def _launch_part(fn, dev: torch.device, hap: torch.Tensor, xc, lens, ir, ia):
-    """`fn` (a pair wrapper) on host reads xc, their 2-bit lengths lens (or
-    None) and indices ir, ia, copied to `dev`; hap lies there already."""
-    return fn(_to(xc, np.uint8, dev), hap, _to(ir, np.int32, dev),
-              _to(ia, np.int32, dev),
-              None if lens is None else _to(lens, np.int32, dev))
+@contextmanager
+def prefetched(items, depth: int):
+    """The iterator `items` advanced on one producer thread up to `depth`
+    items ahead of its consumer, which gets them in order; depth 0
+    advances it on the consumer's thread. An exception raised while
+    producing an item is raised to the consumer at that item, and nothing
+    retries it. On exit no thread is left running: items not yet begun
+    are cancelled and the producer is joined."""
+    if depth <= 0:
+        yield iter(items)
+        return
+    end = object()
+    ahead = collections.deque()
+    with ThreadPoolExecutor(1, thread_name_prefix="chunk-gather") as ex:
+
+        def consume():
+            for _ in range(depth):
+                ahead.append(ex.submit(next, items, end))
+            while True:
+                item = ahead.popleft().result()
+                if item is end:
+                    return
+                ahead.append(ex.submit(next, items, end))
+                yield item
+
+        try:
+            yield consume()
+        finally:
+            for f in ahead:
+                f.cancel()
+
+
+def _launch_part(fn, dev: torch.device, hap: torch.Tensor, read_bits, xc,
+                 lens, ir, ia):
+    """`fn` (a pair wrapper) on one host chunk of host_chunks' (bits per
+    read base or None, reads, their lengths or None, idx_ref, idx_alt),
+    copied to `dev`; hap lies there already. The copies are non_blocking:
+    from the arrays' own pageable memory the CUDA driver stages each before
+    the call returns, and PyTorch leaves out the stream synchronisation of
+    a blocking copy, which would wait for the chunks launched before.
+    (Page-locked copies of each chunk, and copies on a stream of their
+    own, measured no faster end to end.)"""
+
+    def to(a, dtype):
+        return None if a is None else _to(a, dtype, dev, non_blocking=True)
+
+    return fn(to(xc, np.uint8), hap, to(ir, np.int32), to(ia, np.int32),
+              to(lens, np.int32), read_bits=read_bits)
 
 
 def device_context(dev: torch.device):
@@ -882,7 +989,8 @@ class MeshSwBackend(SwBackend):
     chunk of reads cut into contiguous parts, one per device, each part
     launched on its device against the device's copy of the haplotype
     matrix, and the outputs gathered back in read order. A part keeps each
-    read's (ref, alt) indices and 2-bit length with the read. The kernel
+    read's (ref, alt) indices and 2- or 4-bit length with the read, and
+    each device unpacks its own copy of a PackedHaps. The kernel
     (kernel=True, every device CUDA) or the plain version runs on every
     part. Scores are per read, so they do not depend on the split."""
 
@@ -900,16 +1008,19 @@ class MeshSwBackend(SwBackend):
 
     def _chunks(self, x, hap_mat, idx_ref, idx_alt, fn: str):
         _check_indices(hap_mat.shape[0], idx_ref, idx_alt)
-        haps = [_to(hap_mat, np.uint8, be.device) for be in self.parts]
+        haps = [device_haps(hap_mat, be.device) for be in self.parts]
         outs = []
-        for xc, lens, ir, ia in host_chunks(x, idx_ref, idx_alt):
-            for be, hap, (a, b) in zip(self.parts, haps,
-                                       split_rows(len(ir), len(self.parts))):
-                with device_context(be.device):
-                    outs.append(_launch_part(
-                        getattr(be, fn), be.device, hap, xc[a:b],
-                        None if lens is None else lens[a:b], ir[a:b],
-                        ia[a:b]))
+        with prefetched(host_chunks(x, idx_ref, idx_alt),
+                        PREFETCH_DEPTH) as chunks:
+            for bits, xc, lens, ir, ia in chunks:
+                for be, hap, (a, b) in zip(
+                        self.parts, haps,
+                        split_rows(len(ir), len(self.parts))):
+                    with device_context(be.device):
+                        outs.append(_launch_part(
+                            getattr(be, fn), be.device, hap, bits, xc[a:b],
+                            None if lens is None else lens[a:b], ir[a:b],
+                            ia[a:b]))
         return outs
 
 

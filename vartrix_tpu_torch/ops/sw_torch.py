@@ -9,15 +9,16 @@ an exclusive running maximum (``torch.cummax``), exact because chaining F
 through a second gap-open never beats extending the first gap.
 
 Same entry points and output layouts as the CUDA kernel (ops/sw_cuda.py):
-int32 scores [2, R], fused int8 call codes [R], dense or 2-bit reads. It
-runs on whichever device its tensors are on; the CPU tests use it, and the
-GPU smoke check holds the kernel against it on the card.
+int32 scores [2, R], fused int8 call codes [R], dense, 2-bit or 4-bit
+reads. It runs on whichever device its tensors are on; the CPU tests use
+it, and the GPU smoke check holds the kernel against it on the card.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..constants import GAP_EXTEND, GAP_OPEN, MATCH, MIN_SCORE, MISMATCH
@@ -27,6 +28,9 @@ NEG = -(1 << 28)
 # 2-bit codes 0..3 -> ASCII, low bits first within each byte
 # (gio_gather_padded_packed2)
 PACK2_BASES = b"ACGT"
+# 4-bit BAM nibble codes 0..15 -> ASCII, high nibble first within each
+# byte (gio_gather_padded_packed)
+SEQ_NT16 = b"=ACMGRSVTWYHKDBN"
 
 
 def unpack2(xp: torch.Tensor, xlen: torch.Tensor, lx: int) -> torch.Tensor:
@@ -41,6 +45,45 @@ def unpack2(xp: torch.Tensor, xlen: torch.Tensor, lx: int) -> torch.Tensor:
     keep = pos[None, :] < xlen.to(torch.int64)[:, None]
     return torch.where(keep, x, torch.zeros((), dtype=torch.uint8,
                                             device=xp.device))
+
+
+def unpack4(xp: torch.Tensor, xlen: torch.Tensor, lx: int,
+            pad: int = 0) -> torch.Tensor:
+    """uint8 [R, lx//2] 4-bit codes (high nibble first) + int32 [R]
+    lengths -> uint8 [R, lx] SEQ_NT16 bytes, positions >= length set to
+    `pad` (reads 0, haplotypes 1)."""
+    R = xp.shape[0]
+    codes = torch.stack([xp >> 4, xp & 15], dim=-1).reshape(R, lx)
+    table = torch.tensor(list(SEQ_NT16), dtype=torch.uint8, device=xp.device)
+    x = table[codes.to(torch.int64)]
+    pos = torch.arange(lx, device=xp.device)
+    keep = pos[None, :] < xlen.to(torch.int64)[:, None]
+    return torch.where(keep, x, torch.full((), pad, dtype=torch.uint8,
+                                           device=xp.device))
+
+
+class PackedHaps:
+    """A bucket's haplotype matrix in the 4-bit transfer form: `packed`
+    uint8 [H, ly//2] nibbles and `lens` int32 [H], with the dense uint8
+    [H, ly] matrix (pad byte 1) beside them. np.asarray gives the dense
+    matrix, so a consumer that takes dense rows (the banded backend) keeps
+    working; the full-SW backends ship `packed` and `lens` and unpack them
+    on the device once per bucket (unpack4, pad 1)."""
+
+    __slots__ = ("packed", "lens", "dense")
+
+    def __init__(self, packed: np.ndarray, lens: np.ndarray,
+                 dense: np.ndarray):
+        self.packed = packed
+        self.lens = lens
+        self.dense = dense
+
+    @property
+    def shape(self):
+        return self.dense.shape
+
+    def __array__(self, dtype=None, copy=None):
+        return self.dense if dtype is None else self.dense.astype(dtype)
 
 
 def sw_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -69,20 +112,34 @@ def sw_scores(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return best
 
 
-def _dense_reads(reads: torch.Tensor, read_lens: Optional[torch.Tensor]
-                 ) -> torch.Tensor:
+READ_BITS = (2, 4)  # the packed read formats' code widths
+
+
+def dense_reads(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
+                read_bits: int = 2) -> torch.Tensor:
+    """uint8 [R, lx] reads (pad 0): `reads` itself without read_lens,
+    else its read_bits-bit codes (READ_BITS) unpacked, lx = 8 x row bytes /
+    read_bits."""
     if read_lens is None:
         return reads
-    return unpack2(reads, read_lens, 4 * reads.shape[1])
+    if read_bits not in READ_BITS:
+        raise ValueError(f"read_bits must be one of {READ_BITS}, got "
+                         f"{read_bits!r}")
+    lx = 8 * reads.shape[1] // read_bits
+    if read_bits == 2:
+        return unpack2(reads, read_lens, lx)
+    return unpack4(reads, read_lens, lx)
 
 
 def pair_scores(reads: torch.Tensor, hap_mat: torch.Tensor,
                 idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-                read_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                read_lens: Optional[torch.Tensor] = None,
+                read_bits: int = 2) -> torch.Tensor:
     """Each read against its ref and alt haplotype rows -> int32 [2, R].
-    reads: uint8 [R, lx] dense (pad 0), or [R, lx//4] 2-bit codes with
-    int32 read_lens [R]."""
-    x = _dense_reads(reads, read_lens)
+    reads: uint8 [R, lx] dense (pad 0), or with int32 read_lens [R] packed
+    codes of read_bits bits: 2, [R, lx//4] A/C/G/T codes; 4, [R, lx//2]
+    BAM nibble codes."""
+    x = dense_reads(reads, read_lens, read_bits)
     idx = torch.stack([idx_ref, idx_alt]).to(torch.int64)
     xx = torch.cat([x, x])
     return sw_scores(xx, hap_mat[idx.reshape(-1)]).reshape(2, -1)
@@ -99,7 +156,9 @@ def calls_from_scores(scores: torch.Tensor) -> torch.Tensor:
 
 def pair_calls(reads: torch.Tensor, hap_mat: torch.Tensor,
                idx_ref: torch.Tensor, idx_alt: torch.Tensor,
-               read_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused call codes of each read's (ref, alt) scores -> int8 [R]."""
+               read_lens: Optional[torch.Tensor] = None,
+               read_bits: int = 2) -> torch.Tensor:
+    """Fused call codes of each read's (ref, alt) scores -> int8 [R].
+    Arguments as pair_scores."""
     return calls_from_scores(
-        pair_scores(reads, hap_mat, idx_ref, idx_alt, read_lens))
+        pair_scores(reads, hap_mat, idx_ref, idx_alt, read_lens, read_bits))

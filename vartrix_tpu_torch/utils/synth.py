@@ -225,3 +225,48 @@ def generate_dataset(outdir: str, cfg: SynthConfig) -> dict:
         "variants": variants,
         "chroms": chroms,
     }
+
+
+def with_n_bases(bam_path: str, out_path: str, frac: float,
+                 seed: int) -> int:
+    """Writes the records of the BAM at bam_path (a coordinate-sorted file
+    of write_bam's, header and all) to out_path with its .bai, each read of
+    a seeded `frac` of them with one base, at a seeded position, set to N:
+    the share of Illumina reads that carry an N (about 1 %). Every other
+    byte of a record is kept. Returns the number of reads changed."""
+    import gzip
+    import struct
+
+    with open(bam_path, "rb") as f:
+        stream = gzip.decompress(f.read())
+    off = 8 + struct.unpack_from("<i", stream, 4)[0]
+    refs = []
+    for _ in range(struct.unpack_from("<i", stream, off)[0]):
+        l_name = struct.unpack_from("<i", stream, off + 4)[0]
+        name = stream[off + 8 : off + 7 + l_name].decode()
+        length = struct.unpack_from("<i", stream, off + 8 + l_name)[0]
+        refs.append((name, length))
+        off += 8 + l_name
+    off += 4
+    records = []
+    while off < len(stream):
+        end = off + 4 + struct.unpack_from("<i", stream, off)[0]
+        records.append(stream[off:end])
+        off = end
+    rng = np.random.default_rng(seed)
+    picked = np.nonzero(rng.random(len(records)) < frac)[0]
+    n = 0
+    for i in picked.tolist():
+        rec = bytearray(records[i])
+        # after block_size: refID, pos, l_read_name, mapq, bin, n_cigar_op,
+        # flag, l_seq, next refID, next pos, tlen; then name, CIGAR, SEQ
+        n_cigar, _, l_seq = struct.unpack_from("<HHi", rec, 16)
+        if l_seq <= 0:
+            continue
+        p = int(rng.integers(0, l_seq))
+        k = 36 + rec[12] + 4 * n_cigar + p // 2
+        rec[k] |= 0xF0 if p % 2 == 0 else 0x0F  # nibble 15: N
+        records[i] = bytes(rec)
+        n += 1
+    write_bam(out_path, refs, records)
+    return n

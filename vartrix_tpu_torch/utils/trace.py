@@ -53,9 +53,11 @@ def _copy_direction(name: str) -> str:
 
 def device_summary(events: List[dict], phase: str) -> Dict:
     """Device time inside the phase's span: {"window_us", "busy_us",
-    "idle_share", "kernels": {name: {"n", "us"}}, "copies": {direction:
-    {"n", "us", "bytes"}}, "memset_us"}. Raises ValueError when the trace
-    holds no span for the phase."""
+    "idle_share", "lead_us", "tail_us", "kernels": {name: {"n", "us"}},
+    "copies": {direction: {"n", "us", "bytes"}}, "memset_us"}; lead_us and
+    tail_us, the window's time before the device's first interval in it
+    and after its last (the whole window when it holds none). Raises
+    ValueError when the trace holds no span for the phase."""
     want = span_name(phase)
     spans = [e for e in events if e.get("ph") == "X"
              and e.get("cat") == "user_annotation" and e.get("name") == want]
@@ -93,6 +95,8 @@ def device_summary(events: List[dict], phase: str) -> Dict:
     busy_us = union_length(busy)
     return {"window_us": window, "busy_us": busy_us,
             "idle_share": 1.0 - busy_us / window if window > 0 else 0.0,
+            "lead_us": min((b for b, _ in busy), default=w1) - w0,
+            "tail_us": w1 - max((e for _, e in busy), default=w0),
             "kernels": dict(kernels), "copies": dict(copies),
             "memset_us": memset_us}
 
