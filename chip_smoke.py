@@ -727,9 +727,14 @@ N_READ_FRAC, N_READ_SEED = 0.01, 101
 # variants (50,000 reads), cut because the Python record path decodes and
 # joins every record in Python
 PY_HOST_CFG = dict(E2E_CFG, n_variants=100)
-# every launch counter of ops/sw_cuda, zeroed before a path and read after
-COUNTERS = ("LAUNCHES", "BANDED_LAUNCHES", "BAND_LAUNCHES", "INDEX_LAUNCHES",
-            "BANDED_ROW_LAUNCHES", "BAND_ROW_LAUNCHES")
+# every launch counter of ops/sw_cuda in the port's recorder
+# (utils/trace.counters, "launch.<kind>"): driver._main zeroes them at its
+# start, so a phase reads them after a run, or as the difference over
+# direct wrapper calls
+LAUNCH_KINDS = ("sw_pair.pair", "sw_pair.rows", "sw_banded.pair",
+                "sw_banded.rows", "band_build.pair", "band_build.rows",
+                "band_index")
+SW_PAIR = ("sw_pair.pair", "sw_pair.rows")
 # phase 6: a sparse whole-genome-like dataset, bench.py COHORT_CFG's genome
 # (16 x 4 Mb) with ~6 variants and ~20,000 background reads per Mb
 SPARSE_CFG = dict(n_chroms=16, chrom_len=4_000_000, n_variants=400,
@@ -1677,7 +1682,7 @@ def start_wide_pair(rng):
     xt, ht, irt, iat = sw_cuda.from_numpy(x, haps, ir, ia, "cuda")
     xp, lens = pack2(x)
     xpt, lt = torch.from_numpy(xp).cuda(), torch.from_numpy(lens).cuda()
-    n0 = sw_cuda.LAUNCHES
+    n0 = launch_count(*SW_PAIR)
     streams = [torch.cuda.Stream() for _ in range(2)]
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
               for _ in streams]
@@ -1697,7 +1702,7 @@ def start_wide_pair(rng):
         events[1][0].record()
         codes = sw_cuda.pair_calls(xpt, ht, irt, iat, read_lens=lt)
         events[1][1].record()
-    n = sw_cuda.LAUNCHES - n0
+    n = launch_count(*SW_PAIR) - n0
 
     def finish():
         t0 = time.perf_counter()
@@ -1996,7 +2001,7 @@ def check_rows(name, x, haps, ir, host):
     xt = torch.from_numpy(x).cuda()
     yt = torch.from_numpy(np.ascontiguousarray(haps[ir])).cuda()
     ident = torch.arange(len(x), dtype=torch.int32, device="cuda")
-    n0 = (sw_cuda.BAND_ROW_LAUNCHES, sw_cuda.BANDED_ROW_LAUNCHES)
+    n0 = (launch_count("band_build.rows"), launch_count("sw_banded.rows"))
     got = sw_cuda.band_bounds(xt, yt, ident)
     after("band_index, band_build", name, "plain rows")
     plain = band_torch.band_bounds(xt, yt, ident)
@@ -2015,7 +2020,8 @@ def check_rows(name, x, haps, ir, host):
         errs[route] = int((sc - ref).abs().max().item()) if len(x) else 0
     err = max(*errs.values(), int((whole - ref).abs().max().item())
               if len(x) else 0)
-    n = (sw_cuda.BAND_ROW_LAUNCHES - n0[0], sw_cuda.BANDED_ROW_LAUNCHES - n0[1])
+    n = (launch_count("band_build.rows") - n0[0],
+         launch_count("sw_banded.rows") - n0[1])
     log(f"plain rows {name:11s} B={len(x)} lx={x.shape[1]} ly={haps.shape[1]}"
         f": band_build bound mismatches vs host and plain {bad}; sw_banded "
         f"max|err| " + ", ".join(f"{r} {e}" for r, e in errs.items())
@@ -2049,10 +2055,10 @@ def check_wide_banded(rng, threads):
     if bad:
         fail("band_build disagrees with the host reference on the wide "
              "family")
-    n0 = sw_cuda.BANDED_LAUNCHES
+    n0 = launch_count("sw_banded.pair")
     err, ref = check_banded("wide", (xt, ht, irt, iat) + tuple(got))
     if (ref.T.cpu() != torch.tensor(known)).any() or \
-            sw_cuda.BANDED_LAUNCHES - n0 != 2:
+            launch_count("sw_banded.pair") - n0 != 2:
         fail("sw_banded's 64-bit scratch word: not the known scores")
     return err
 
@@ -2073,22 +2079,22 @@ def check_long_hap(rng, threads):
     saved = sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES
     sw_cuda.DP_SCRATCH_BYTES = sw_cuda.BAND_SCRATCH_BYTES = 16 << 20
     try:
-        n0 = (sw_cuda.LAUNCHES, sw_cuda.BANDED_LAUNCHES,
-              sw_cuda.BAND_LAUNCHES)
+        n0 = (launch_count(*SW_PAIR), launch_count("sw_banded.pair"),
+              launch_count("band_build.pair"))
         t0 = time.perf_counter()
         index, _ = check_index("long_hap", ht)
         got = sw_cuda.band_bounds(xt, ht, irt, iat, index)
         after("band_build", "long_hap", sw_cuda.band_route(x.shape[1]))
         dt = time.perf_counter() - t0
-        n_band = sw_cuda.BAND_LAUNCHES - n0[2]
+        n_band = launch_count("band_build.pair") - n0[2]
         args = (xt, ht, irt, iat) + tuple(got)
         err, _ = check_banded("long_hap", args)
-        n_banded = (sw_cuda.BANDED_LAUNCHES - n0[1]) // (
+        n_banded = (launch_count("sw_banded.pair") - n0[1]) // (
             2 * len(banded_routes(x.shape[1], haps.shape[1])))
         pair = sw_cuda.pair_scores(xt, ht, irt, iat)
         after("sw_pair", "long_hap",
               sw_cuda.pair_route(x.shape[1], haps.shape[1]))
-        n_pair = sw_cuda.LAUNCHES - n0[0]
+        n_pair = launch_count(*SW_PAIR) - n0[0]
     finally:
         sw_cuda.DP_SCRATCH_BYTES, sw_cuda.BAND_SCRATCH_BYTES = saved
     t1 = time.perf_counter()
@@ -3191,9 +3197,9 @@ def phase_e2e(work, data):
     index_mats = []
     for sw_mode in own:
         for be, be_args in backends.items():
-            sw_cuda.LAUNCHES = sw_cuda.BANDED_LAUNCHES = 0
-            sw_cuda.BAND_LAUNCHES = sw_cuda.INDEX_LAUNCHES = 0
-            reset_routes()
+            launches[sw_mode, be] = collections.Counter()
+            routes = {"read": collections.Counter(),
+                      "hap": collections.Counter()}
             buckets[0] = 0
             for mode, mode_args in modes.items():
                 if (sw_mode, be) == ("banded", "torch") and \
@@ -3232,16 +3238,18 @@ def phase_e2e(work, data):
                     f"{payload['phase_seconds']}")
                 outs[sw_mode, mode, be] = (out, ref)
                 run_launches[tag] = payload["kernel_launches"]
-            launches[sw_mode, be] = {"sw_pair": sw_cuda.LAUNCHES,
-                                     "sw_banded": sw_cuda.BANDED_LAUNCHES,
-                                     "band_build": sw_cuda.BAND_LAUNCHES,
-                                     "band_index": sw_cuda.INDEX_LAUNCHES}
+                launches[sw_mode, be].update(payload["kernel_launches"])
+                for kind, total in routes.items():
+                    total.update(route_counts(kind))
+            launches[sw_mode, be] = {
+                k: launches[sw_mode, be][k]
+                for k in ("sw_pair", "sw_banded", "band_build", "band_index")}
             n_buckets[sw_mode, be] = buckets[0]
             log(f"e2e {sw_mode} {be}: launches over the three runs "
                 f"{launches[sw_mode, be]}; banded shape buckets "
                 f"{buckets[0]}; read chunks by format "
-                f"{sw_cuda.READ_ROUTE_CHUNKS}, haplotype matrices "
-                f"{sw_cuda.HAP_ROUTE_BUCKETS}")
+                f"{dict(routes['read'])}, haplotype matrices "
+                f"{dict(routes['hap'])}")
     for sw_mode, kernels in own.items():
         for be in backends:
             for name, n in launches[sw_mode, be].items():
@@ -3282,13 +3290,27 @@ def phase_e2e(work, data):
             outs, run_launches, index_mats)
 
 
-def reset_routes():
-    """Zeroes ops/sw_cuda's read and haplotype format counts."""
-    from vartrix_tpu_torch.ops import sw_cuda
+def launch_count(*kinds) -> int:
+    """The recorder's launch.<kind> counters of `kinds`, summed."""
+    from vartrix_tpu_torch.utils import trace
 
-    for counts in (sw_cuda.READ_ROUTE_CHUNKS, sw_cuda.HAP_ROUTE_BUCKETS):
-        for k in counts:
-            counts[k] = 0
+    c = trace.counters()
+    return sum(c.get(f"launch.{k}", 0) for k in kinds)
+
+
+def launch_counts() -> dict:
+    """{kind: launches} of every LAUNCH_KINDS counter."""
+    return {k: launch_count(k) for k in LAUNCH_KINDS}
+
+
+def route_counts(kind: str) -> dict:
+    """The recorder's read chunks ("read": p2, p4, dense) or haplotype
+    matrices ("hap": p4, dense) by the format they shipped in."""
+    from vartrix_tpu_torch.utils import trace
+
+    c = trace.counters()
+    names = ("p2", "p4", "dense") if kind == "read" else ("p4", "dense")
+    return {r: c.get(f"route.{kind}.{r}", 0) for r in names}
 
 
 def generate_n_reads(data):
@@ -3319,7 +3341,6 @@ def phase_n_reads(work, data):
 
     def run(tag, extra, depth=default, profile=False):
         sw_cuda.PREFETCH_DEPTH = depth
-        reset_routes()
         out = os.path.join(work, f"n_{tag}.mtx")
         mj = os.path.join(work, f"n_{tag}.json")
         argv = ["-v", data["vcf"], "-b", data["bam"], "-f", data["fasta"],
@@ -3334,8 +3355,8 @@ def phase_n_reads(work, data):
         dt = time.perf_counter() - t0
         with open(mj) as f:
             payload = json.load(f)
-        routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
-        haps = dict(sw_cuda.HAP_ROUTE_BUCKETS)
+        routes = route_counts("read")
+        haps = route_counts("hap")
         log(f"n-reads {tag} (prefetch depth {depth}): {dt:.3f}s, score "
             f"{payload['phase_seconds']['score']} s, launches "
             f"{payload['kernel_launches']}, read chunks by format {routes}, "
@@ -3391,7 +3412,7 @@ def phase_cram_python(work, data, py, outs, run_launches):
     (sw_pair on its full runs; sw_banded and band_build in their plain-row
     mode on the banded run)."""
     from vartrix_tpu_torch import driver
-    from vartrix_tpu_torch.ops import sw_cuda, sw_native
+    from vartrix_tpu_torch.ops import sw_native
 
     t_start = time.perf_counter()
     host_calls = [0]
@@ -3408,12 +3429,10 @@ def phase_cram_python(work, data, py, outs, run_launches):
                 d["barcodes"], "-o", out, "--threads",
                 str(os.cpu_count() or 1), "--metrics-json", mj,
                 "--backend", "cuda", *extra]
-        for name in COUNTERS:
-            setattr(sw_cuda, name, 0)
         t0 = time.perf_counter()
-        driver._main(argv)
+        driver._main(argv)  # zeroes the launch counters first
         dt = time.perf_counter() - t0
-        n = {name: getattr(sw_cuda, name) for name in COUNTERS}
+        n = launch_counts()
         with open(mj) as f:
             payload = json.load(f)
         log(f"cram/python {tag}: {dt:.3f}s, {d['n_reads'] / dt:.0f} reads/s, "
@@ -3437,9 +3456,10 @@ def phase_cram_python(work, data, py, outs, run_launches):
             out, payload, n = run(tag, data, data["cram"], *extra)
             same(tag, out, outs[base, "consensus", "cuda"][0])
             want = run_launches[f"{base}_consensus_cuda"]
-            got = {"sw_pair": n["LAUNCHES"], "sw_banded": n["BANDED_LAUNCHES"],
-                   "band_build": n["BAND_LAUNCHES"],
-                   "band_index": n["INDEX_LAUNCHES"]}
+            got = {"sw_pair": n["sw_pair.pair"] + n["sw_pair.rows"],
+                   "sw_banded": n["sw_banded.pair"],
+                   "band_build": n["band_build.pair"],
+                   "band_index": n["band_index"]}
             if got != want or payload.get("cram_decode") != "native":
                 fail(f"phase 7 {tag}: launches {got} against the BAM run's "
                      f"{want}, CRAM decode {payload.get('cram_decode')}")
@@ -3449,15 +3469,13 @@ def phase_cram_python(work, data, py, outs, run_launches):
                 ("py_cram_full", py["cram"], ()),
                 ("py_bam_banded", py["bam"], ("--sw-mode", "banded")),
                 ("py_bam_n_full", py["bam_n"], ())):
-            reset_routes()
             base, _, _ = run(f"{tag}_native", py, reads, *extra)
-            native_routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
-            reset_routes()
+            native_routes = route_counts("read")
             out, payload, n = run(f"{tag}_python", py, reads, "--host",
                                   "python", *extra)
             same(f"{tag}_python", out, base)
             if tag == "py_bam_n_full":
-                routes = dict(sw_cuda.READ_ROUTE_CHUNKS)
+                routes = route_counts("read")
                 log(f"cram/python {tag}: read chunks by format, native host "
                     f"{native_routes}, Python host {routes}")
                 if not native_routes["p4"] or any(routes.values()):
@@ -3466,14 +3484,17 @@ def phase_cram_python(work, data, py, outs, run_launches):
             if payload["config"]["host"] != "python":
                 fail(f"phase 7 {tag}: the run did not take the Python host")
             if "banded" in extra:
-                ok = (min(n["BANDED_ROW_LAUNCHES"], n["BAND_ROW_LAUNCHES"],
-                          n["INDEX_LAUNCHES"]) > 0 and n["LAUNCHES"] ==
-                      n["BANDED_LAUNCHES"] == n["BAND_LAUNCHES"] == 0)
-                py_launches["sw_banded_rows"] = n["BANDED_ROW_LAUNCHES"]
-                py_launches["band_build_rows"] = n["BAND_ROW_LAUNCHES"]
+                ok = (min(n["sw_banded.rows"], n["band_build.rows"],
+                          n["band_index"]) > 0
+                      and n["sw_pair.pair"] + n["sw_pair.rows"]
+                      == n["sw_banded.pair"] == n["band_build.pair"] == 0)
+                py_launches["sw_banded_rows"] = n["sw_banded.rows"]
+                py_launches["band_build_rows"] = n["band_build.rows"]
             else:
-                ok = n["LAUNCHES"] > 0 and n["BANDED_ROW_LAUNCHES"] == 0
-                py_launches[f"sw_pair_{tag}"] = n["LAUNCHES"]
+                ok = (n["sw_pair.pair"] + n["sw_pair.rows"] > 0
+                      and n["sw_banded.rows"] == 0)
+                py_launches[f"sw_pair_{tag}"] = (n["sw_pair.pair"]
+                                                 + n["sw_pair.rows"])
             if not ok:
                 fail(f"phase 7 {tag}: kernels launched {n}")
     finally:
@@ -3566,13 +3587,11 @@ def phase_devices(work, data, outs, device="cuda"):
     runs.append(("full_consensus_mesh1", "full", "consensus",
                  ("--mesh-devices", "-1")))
     for tag, sw_mode, mode, extra in runs:
-        for name in COUNTERS:
-            setattr(sw_cuda, name, 0)
         t0 = time.perf_counter()
         driver._main(argv(f"p8_{tag}", mode, "--sw-mode", sw_mode,
                           "--threads", threads, *dev_args, *extra))
         dt = time.perf_counter() - t0
-        n = {name: getattr(sw_cuda, name) for name in COUNTERS}
+        n = launch_counts()  # the run's: _main zeroes them first
         got = phases(f"p8_{tag}")["phase_seconds"]
         base = phases(f"{sw_mode}_{mode}_cuda")["phase_seconds"]
         log(f"devices {tag}: {dt:.3f}s, aggregate {got['aggregate']} s "
@@ -3580,13 +3599,13 @@ def phase_devices(work, data, outs, device="cuda"):
             f"{got['score']} s (phase 5: {base['score']} s), counters {n}, "
             f"phases {got}")
         same(f"p8_{tag}", sw_mode, mode)
-        kernels = (("LAUNCHES",) if sw_mode == "full" else
-                   ("BANDED_LAUNCHES", "BAND_LAUNCHES", "INDEX_LAUNCHES"))
+        kernels = (("sw_pair.pair",) if sw_mode == "full" else
+                   ("sw_banded.pair", "band_build.pair", "band_index"))
         if kernel and (min(n[k] for k in kernels) == 0 or sum(n.values())
                        != sum(n[k] for k in kernels)):
             fail(f"phase 8 {tag}: kernels launched {n}")
         if sw_mode == "full":
-            launches[tag] = n["LAUNCHES"]
+            launches[tag] = n["sw_pair.pair"]
 
     # two parts on this card: the split, the gather and the sum
     rng = np.random.default_rng(8)

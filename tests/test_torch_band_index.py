@@ -34,6 +34,7 @@ from hypothesis import given, settings, strategies as st
 from test_torch_band_build import repetitive_case, short_case
 from vartrix_tpu_torch.ops import band_torch, sw_banded_torch, sw_cuda, \
     sw_torch
+from vartrix_tpu_torch.utils import trace
 
 K = 6
 SETTINGS = settings(max_examples=60, deadline=None, derandomize=True,
@@ -495,9 +496,10 @@ def test_dp_kernels_exact_over_several_read_ranges(cuda_device,
     exp_banded = sw_banded_torch.banded_pair_scores(*args, *bounds)
     monkeypatch.setattr(sw_cuda, "DP_SCRATCH_BYTES", 3 * 2 * 80 * 4)
     dev = [a.to(cuda_device) for a in args]
-    n0 = sw_cuda.LAUNCHES
+    n0 = trace.counters().get("launch.sw_pair.pair", 0)
     got = sw_cuda.pair_scores(*dev)
-    assert sw_cuda.LAUNCHES - n0 == 8  # 24 reads, 3 per range
+    # 24 reads, 3 per range
+    assert trace.counters()["launch.sw_pair.pair"] - n0 == 8
     got_banded = sw_cuda.banded_pair_scores(
         *dev, *(b.to(cuda_device) for b in bounds))
     assert torch.equal(got.cpu(), exp)

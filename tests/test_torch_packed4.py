@@ -27,6 +27,7 @@ from vartrix_tpu_torch.core import fast_pipeline
 from vartrix_tpu_torch.driver import _main as port_main
 from vartrix_tpu_torch.io import bam_native
 from vartrix_tpu_torch.ops import sw_cuda, sw_torch
+from vartrix_tpu_torch.utils import trace
 from vartrix_tpu_torch.utils.synth import with_n_bases
 
 NT16 = np.frombuffer(b"=ACMGRSVTWYHKDBN", np.uint8)
@@ -296,16 +297,15 @@ def test_cli_on_n_reads_byte_equal_to_jax(tmp_path, n_data, mode, monkeypatch):
         with open(ref, "rb") as f:
             return got, f.read()
 
-    for name in ("READ_ROUTE_CHUNKS", "HAP_ROUTE_BUCKETS"):
-        monkeypatch.setattr(sw_cuda, name,
-                            dict.fromkeys(getattr(sw_cuda, name), 0))
     got = run(port_main, "port", ["--device", "cpu", "--backend", "torch"])
+    counts = trace.counters()  # the port's run's, until the next _main
     exp = run(jax_main, "jax", ["--host", "native", "--backend", "tpu"])
     assert got == exp
-    routes = sw_cuda.READ_ROUTE_CHUNKS
+    routes = {r: counts.get(f"route.read.{r}", 0)
+              for r in ("p2", "p4", "dense")}
     assert routes["p4"] > 0 and routes["dense"] == 0, routes
-    assert sw_cuda.HAP_ROUTE_BUCKETS["p4"] > 0
-    assert sw_cuda.HAP_ROUTE_BUCKETS["dense"] == 0
+    assert counts.get("route.hap.p4", 0) > 0
+    assert counts.get("route.hap.dense", 0) == 0
 
 
 # ------------------------------------------------ on the card

@@ -16,6 +16,7 @@ from vartrix_tpu.ops.sw_pallas_v2 import PackedHaps as JaxPackedHaps
 from vartrix_tpu_torch.io import bam_native
 from vartrix_tpu_torch.ops import sw_cuda, sw_torch
 from vartrix_tpu_torch.parallel import mesh as pmesh
+from vartrix_tpu_torch.utils import trace
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 SPAN = 256  # reads per chunk in both packages (VARTRIX_CHUNK = 2 * SPAN)
@@ -129,16 +130,16 @@ def test_routes_equal_to_jax_dispatch(case, monkeypatch):
     ir = rng.integers(0, 10, R).astype(np.int32)
     ia = rng.integers(0, 10, R).astype(np.int32)
     monkeypatch.setattr(sw_cuda, "CHUNK_READS", SPAN)
-    monkeypatch.setattr(sw_cuda, "READ_ROUTE_CHUNKS",
-                        dict.fromkeys(sw_cuda.READ_ROUTE_CHUNKS, 0))
+    trace.reset(record=False)
     x = provider(pool, off, lx)
     got = [FORMAT_OF_BITS[c[0]] for c in sw_cuda.host_chunks(x, ir, ia)]
+    routes = {r: trace.counters().get(f"route.read.{r}", 0)
+              for r in ROUTE_CODE}
     ph = packed_haps(haps)
     for hap in (haps, JaxPackedHaps(ph.packed, ph.lens, haps)):
         assert jax_routes(x, hap, ir, ia, monkeypatch) == got
     assert len(got) == 7
-    assert sw_cuda.READ_ROUTE_CHUNKS == {
-        r: got.count(r) for r in sw_cuda.READ_ROUTE_CHUNKS}
+    assert routes == {r: got.count(r) for r in ROUTE_CODE}
     assert got == sorted(got, key=list(ROUTE_CODE).index)
 
 
@@ -303,12 +304,12 @@ def test_mesh_backend_equal_over_4bit_parts(n_parts, monkeypatch):
         be._pair_calls = spy
     x = provider(pool, off, 32)
     want = single.pair_calls_chained(x, haps, ir, ia)
-    monkeypatch.setattr(sw_cuda, "HAP_ROUTE_BUCKETS",
-                        dict.fromkeys(sw_cuda.HAP_ROUTE_BUCKETS, 0))
+    trace.reset(record=False)
     got = mesh.pair_calls_chained(x, ph, ir, ia)
     assert got.dtype == np.int8 and np.array_equal(got, want)
     assert sum(n for n, _ in seen) == R and len(seen) == 4 * n_parts
     assert [b for _, b in seen] == [4] * 4 * n_parts
-    assert sw_cuda.HAP_ROUTE_BUCKETS == {"p4": n_parts, "dense": 0}
+    assert {r: trace.counters().get(f"route.hap.{r}", 0)
+            for r in ("p4", "dense")} == {"p4": n_parts, "dense": 0}
     np.testing.assert_array_equal(mesh.pair_chained(x, ph, ir, ia),
                                   single.pair_chained(x, haps, ir, ia))

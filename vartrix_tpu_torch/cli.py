@@ -122,7 +122,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="Write run metrics as JSON: the 9 reference "
                         "counters, per-phase wall-clock seconds, matrix "
-                        "nnz, and configuration")
+                        "nnz, kernel launches, configuration, and the "
+                        "run's spans (\"spans\": name -> n, total s, "
+                        "self_s: the total less what child spans on the "
+                        "same thread cover, parent) and counters "
+                        "(\"counters\": name -> count, per run)")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", metavar="DIR",
                    default=None,
                    help="Spill per-variant score blocks to this directory and "

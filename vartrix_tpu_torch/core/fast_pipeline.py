@@ -25,6 +25,7 @@ import numpy as np
 from ..io.bam_native import (ColumnarBam, gather_padded,
                              gather_padded_packed, gather_padded_packed2)
 from ..ops.sw_torch import PackedHaps
+from ..utils import trace
 from ..utils.metrics import Metrics
 from .pipeline import PipelineArgs, VariantWork
 
@@ -249,6 +250,44 @@ def _score_all_pairs(
     convention. pair_fn returns ONE int8 call code per read (0/1/2/3);
     results are per-variant [n] int8 arrays."""
     results = [np.zeros(len(r), dtype=np.int8) for r in read_idx]
+    with trace.span("vartrix::score.prep"):
+        prep = _pair_tasks(cbam, works, read_idx, lx_quantum, ly_quantum)
+    if prep is None:
+        return results
+    t_read, t_var, blocks, keys, hap_pool, hap_off = prep
+    flat = np.zeros(len(t_read), dtype=np.int8)
+    for key in np.unique(keys):
+        trace.count("score.buckets")
+        with trace.span("vartrix::score.bucket"):
+            sel = np.nonzero(keys == key)[0]
+            lx = int(key >> 32)
+            ly = int(key & 0xFFFFFFFF)
+            with trace.span("vartrix::score.haps"):
+                uniq_v, v_inv = np.unique(t_var[sel], return_inverse=True)
+                hap_ids = np.empty(2 * len(uniq_v), np.int64)
+                hap_ids[0::2] = 2 * uniq_v
+                hap_ids[1::2] = 2 * uniq_v + 1
+                hap_mat = _gather_padded_pool(hap_pool, hap_off, hap_ids, ly,
+                                              pad_byte=1)
+                hap_mat = _maybe_pack_haps(hap_pool, hap_off, hap_ids, ly,
+                                           hap_mat)
+            x = _read_provider(cbam, t_read[sel], lx)
+            idx_ref = (2 * v_inv).astype(np.int32)
+            idx_alt = (2 * v_inv + 1).astype(np.int32)
+            flat[sel] = np.asarray(pair_fn(x, hap_mat, idx_ref, idx_alt),
+                                   dtype=np.int8)
+    for wi, start, count in blocks:
+        results[wi][...] = flat[start : start + count]
+    return results
+
+
+def _pair_tasks(cbam: ColumnarBam, works: List[VariantWork],
+                read_idx: List[np.ndarray], lx_quantum: int,
+                ly_quantum: int):
+    """The flat task list of _score_all_pairs: (each task's read and
+    variant, the (variant, flat start, count) blocks, each task's shape
+    bucket key, the haplotype pool and its offsets), or None without
+    tasks."""
     t_read_l, blocks = [], []   # (variant, flat_start, count)
     cursor = 0
     act = []
@@ -260,7 +299,7 @@ def _score_all_pairs(
         act.append(wi)
         cursor += len(rids)
     if not t_read_l:
-        return results
+        return None
     t_read = np.concatenate(t_read_l)
     t_var = np.repeat(np.array(act, np.int64),
                       [len(read_idx[i]) for i in act])
@@ -282,28 +321,8 @@ def _score_all_pairs(
     hap_off = np.zeros(2 * len(works) + 1, np.int64)
     np.cumsum([len(b) for w in works for b in (w.rref, w.alt_hap)],
               out=hap_off[1:])
-
-    flat = np.zeros(len(t_read), dtype=np.int8)
     keys = qlx * (1 << 32) + qly
-    for key in np.unique(keys):
-        sel = np.nonzero(keys == key)[0]
-        lx = int(key >> 32)
-        ly = int(key & 0xFFFFFFFF)
-        uniq_v, v_inv = np.unique(t_var[sel], return_inverse=True)
-        hap_ids = np.empty(2 * len(uniq_v), np.int64)
-        hap_ids[0::2] = 2 * uniq_v
-        hap_ids[1::2] = 2 * uniq_v + 1
-        hap_mat = _gather_padded_pool(hap_pool, hap_off, hap_ids, ly,
-                                      pad_byte=1)
-        hap_mat = _maybe_pack_haps(hap_pool, hap_off, hap_ids, ly, hap_mat)
-        x = _read_provider(cbam, t_read[sel], lx)
-        idx_ref = (2 * v_inv).astype(np.int32)
-        idx_alt = (2 * v_inv + 1).astype(np.int32)
-        flat[sel] = np.asarray(pair_fn(x, hap_mat, idx_ref, idx_alt),
-                               dtype=np.int8)
-    for wi, start, count in blocks:
-        results[wi][...] = flat[start : start + count]
-    return results
+    return t_read, t_var, blocks, keys, hap_pool, hap_off
 
 
 def _maybe_pack_haps(hap_pool: np.ndarray, hap_off: np.ndarray,

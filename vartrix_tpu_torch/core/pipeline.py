@@ -18,6 +18,7 @@ import numpy as np
 
 from ..io.fasta import IndexedFasta
 from ..io.vcf import VcfRecord
+from ..utils import trace
 from ..utils.metrics import Metrics
 from .haplotypes import Locus
 
@@ -118,8 +119,9 @@ def prepare_variants(
     def bad_positions(chrom: str) -> np.ndarray:
         arr = bad_pos_cache.get(chrom)
         if arr is None:
-            seq = fasta.fetch_upper(chrom, 0, fasta.chrom_len(chrom))
-            arr = np.nonzero(~valid_lut[np.frombuffer(seq, np.uint8)])[0]
+            with trace.span("vartrix::haplotypes.invalid_index"):
+                seq = fasta.fetch_upper(chrom, 0, fasta.chrom_len(chrom))
+                arr = np.nonzero(~valid_lut[np.frombuffer(seq, np.uint8)])[0]
             bad_pos_cache[chrom] = arr
         return arr
 

@@ -40,7 +40,6 @@ import logging
 import os
 import sys
 import tempfile
-import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Dict, List, Optional
@@ -67,8 +66,8 @@ from .ops import sw_cuda
 from .parallel.mesh import make_mesh
 from .parallel.multihost import (gather_metrics, gather_triplets,
                                  process_group, shard_range)
+from .utils import trace
 from .utils.metrics import Metrics, log_metrics
-from .utils.trace import span_name
 
 log = logging.getLogger("vartrix")
 
@@ -172,46 +171,51 @@ def write_variants(out_variants: str, vcf_file: str) -> None:
             f.write(f"{rec.chrom}_{rec.pos}\n")
 
 
-_PHASE_TIMES: Dict[str, float] = {}
-
-
 @contextmanager
-def _phase(name: str):
-    """Wall-clock a pipeline stage at info level and collect it for
-    --metrics-json."""
-    t0 = time.perf_counter()
+def _phase(name: str, profile_dir: Optional[str] = None,
+           device: str = "cpu"):
+    """A pipeline stage as the recorder's phase span "vartrix::<name>"
+    (utils/trace.phase), logged at info level. With profile_dir, a
+    torch.profiler trace of the stage (CPU activity, and the card's with
+    --device cuda; every thread's spans where this PyTorch can record
+    them) is written to profile_dir/<name>.pt.trace.json; the phase's span
+    opens once the profiler runs, is the trace's window and holds the
+    final device synchronisation. A trace that was asked for and cannot be
+    written raises."""
+    sp = None
     try:
-        yield
+        if not profile_dir:
+            with trace.phase(name) as sp:
+                yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if device == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts,
+                     experimental_config=_all_threads()) as prof:
+            with trace.profiling(), trace.phase(name) as sp:
+                yield
+                if device == "cuda":
+                    torch.cuda.synchronize()
+        path = os.path.join(profile_dir, f"{name}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        log.info("Profiler trace of %s: %s", name, path)
     finally:
-        dt = time.perf_counter() - t0
-        _PHASE_TIMES[name] = _PHASE_TIMES.get(name, 0.0) + dt
-        log.info("Phase %-12s %.2fs", name, dt)
+        if sp is not None and sp.seconds is not None:
+            log.info("Phase %-12s %.2fs", name, sp.seconds)
 
 
-@contextmanager
-def _maybe_profile(profile_dir: Optional[str], device: str, phase: str):
-    """torch.profiler trace of a phase (CPU activity, and the card's with
-    --device cuda), written to profile_dir/<phase>.pt.trace.json. The phase
-    runs inside a record_function span (utils/trace.span_name) that marks
-    the trace's window. A trace that was asked for and cannot be written
-    raises."""
-    if not profile_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    os.makedirs(profile_dir, exist_ok=True)
-    acts = [ProfilerActivity.CPU]
-    if device == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        with record_function(span_name(phase)):
-            yield
-            if device == "cuda":
-                torch.cuda.synchronize()
-    path = os.path.join(profile_dir, f"{phase}.pt.trace.json")
-    prof.export_chrome_trace(path)
-    log.info("Profiler trace of %s: %s", phase, path)
+def _all_threads():
+    """The profiler's option that records the spans of every thread, or
+    None where this PyTorch lacks it (then only the calling thread's)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
 
 
 def _loci(works) -> list:
@@ -232,7 +236,8 @@ def plan_fetch(args, works, tid_by_name) -> Optional[list]:
             and os.path.getsize(args.bam) < AUTO_REGION_BYTES):
         return None
     loci = _loci(w for w in works if not w.skipped)
-    plan, frac = plan_region_fetch(args.bam, loci, tid_by_name)
+    with trace.span("vartrix::plan"):
+        plan, frac = plan_region_fetch(args.bam, loci, tid_by_name)
     if plan is not None and not plan and (args.fetch == "auto" or not loci):
         plan = None
     if plan is not None and (args.fetch == "regions"
@@ -252,7 +257,9 @@ def cram_containers(args, bam: CramReader, works) -> Optional[list]:
     .crai)."""
     if args.fetch == "whole":
         return None
-    offs = bam.containers_for_loci(_loci(w for w in works if not w.skipped))
+    with trace.span("vartrix::plan"):
+        offs = bam.containers_for_loci(_loci(w for w in works
+                                             if not w.skipped))
     if offs is not None:
         log.info("CRAM fetch plan: %d of %d containers", len(offs),
                  len(bam.container_offsets()))
@@ -279,11 +286,25 @@ def decode_cram(args, pargs, bam: CramReader, works):
             with _phase("cram-decode"):
                 transcode_to_bam(args.bam, path, args.fasta, loci=loci)
             with _phase("decode"):
-                return (ColumnarBam(path, pargs.bam_tag.encode(), threads),
-                        "transcode")
+                return (_decoded(ColumnarBam(path, pargs.bam_tag.encode(),
+                                             threads), offs), "transcode")
     with _phase("decode"):
-        return ColumnarBam(args.bam, pargs.bam_tag.encode(), threads,
-                           bam_bytes=stream), "native"
+        return _decoded(ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                                    threads, bam_bytes=stream), offs), "native"
+
+
+def _decoded(cbam: ColumnarBam, chunks) -> ColumnarBam:
+    """Counts a decode: its records, and the merged chunks (or CRAM
+    containers) it read, a whole file counting as one."""
+    trace.count("decode.records", cbam.n)
+    trace.count("decode.chunks", 1 if chunks is None else len(chunks))
+    return cbam
+
+
+def _decode_early(path: str, tag: bytes, threads: int) -> ColumnarBam:
+    """The whole-file decode on the early decode's worker thread."""
+    with trace.span("vartrix::decode.early"):
+        return ColumnarBam(path, tag, threads)
 
 
 def _stream_score(args, pargs, works, cell_barcodes, backend, tid_by_name):
@@ -315,37 +336,49 @@ def _stream_score(args, pargs, works, cell_barcodes, backend, tid_by_name):
         return read_idx, cells_l, umis_l, codes, 0
 
     def plan_of(win):
-        return plan_region_fetch(args.bam, _loci(works[i] for i in win),
-                                 tid_by_name)[0]
+        with trace.span("vartrix::plan"):
+            return plan_region_fetch(args.bam, _loci(works[i] for i in win),
+                                     tid_by_name)[0]
 
     def decode(win, plan=None):
         plan = plan_of(win) if plan is None else plan
         if plan is None:
             raise RuntimeError("BAM index became unusable mid-stream")
-        return ColumnarBam(args.bam, pargs.bam_tag.encode(),
-                           max(args.threads, 1), chunks=plan)
+        with trace.span("vartrix::decode"):
+            return _decoded(ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                                        max(args.threads, 1), chunks=plan),
+                            plan)
 
     first = plan_of(windows[0])
     if first is None:
         return None
     n_records = 0
     with ThreadPoolExecutor(max_workers=1) as ex:
-        fut = ex.submit(decode, windows[0], first)
+        fut = ex.submit(trace.carry(decode), windows[0], first)
         for t, win in enumerate(windows):
-            cbam = fut.result()
-            if t + 1 < len(windows):
-                fut = ex.submit(decode, windows[t + 1])
-            n_records += cbam.n
-            sub = [works[i] for i in win]
-            ri, cl, ul = collect_reads_fast(cbam, sub, cell_barcodes, pargs)
-            sc = score_all_fast(cbam, sub, ri, backend)
-            for k, i in enumerate(win):
-                read_idx[i], cells_l[i], umis_l[i] = ri[k], cl[k], ul[k]
-                codes[i] = sc[k]
-            del cbam
+            with trace.span("vartrix::stream.window"):
+                cbam = fut.result()
+                if t + 1 < len(windows):
+                    fut = ex.submit(trace.carry(decode), windows[t + 1])
+                n_records += cbam.n
+                sub = [works[i] for i in win]
+                with trace.span("vartrix::collect"):
+                    ri, cl, ul = collect_reads_fast(cbam, sub, cell_barcodes,
+                                                    pargs)
+                _scored(ri)
+                sc = score_all_fast(cbam, sub, ri, backend)
+                for k, i in enumerate(win):
+                    read_idx[i], cells_l[i], umis_l[i] = ri[k], cl[k], ul[k]
+                    codes[i] = sc[k]
+                del cbam
     log.info("Streamed %d variants over %d windows of <=%d",
              len(live), len(windows), args.stream)
     return read_idx, cells_l, umis_l, codes, n_records
+
+
+def _scored(read_idx) -> None:
+    """Counts the reads collect hands to scoring."""
+    trace.count("collect.reads_scored", sum(len(r) for r in read_idx))
 
 
 def _score_checkpointed(args, cbam, works, read_idx, backend):
@@ -432,8 +465,7 @@ def _native_host(args, pargs, bam, works, cell_barcodes, backend, early,
         else:
             # one phase spans the windows' decode, collect and score: they
             # overlap by design, so separate timers would double-count
-            with _phase("stream"), _maybe_profile(args.profile_dir,
-                                                  args.device, "stream"):
+            with _phase("stream", args.profile_dir, args.device):
                 streamed = _stream_score(args, pargs, works, cell_barcodes,
                                          backend, bam.tid_by_name)
             if streamed is None:
@@ -451,16 +483,17 @@ def _native_host(args, pargs, bam, works, cell_barcodes, backend, early,
                 args, works, bam.tid_by_name)
             with _phase("decode"):
                 # the early decode's timer measures only the remaining wait
-                cbam = (early.result() if early is not None else
-                        ColumnarBam(args.bam, pargs.bam_tag.encode(),
-                                    max(args.threads, 1), chunks=chunks))
+                cbam = _decoded(
+                    early.result() if early is not None else
+                    ColumnarBam(args.bam, pargs.bam_tag.encode(),
+                                max(args.threads, 1), chunks=chunks), chunks)
             strategy = cbam.loader
         log.info("Decoded %d records (strategy: %s)", cbam.n, strategy)
         with _phase("collect"):
             read_idx, cells_l, umis_l = collect_reads_fast(
                 cbam, works, cell_barcodes, pargs)
-        with _phase("score"), _maybe_profile(args.profile_dir, args.device,
-                                             "score"):
+        _scored(read_idx)
+        with _phase("score", args.profile_dir, args.device):
             if args.checkpoint_dir:
                 per_variant_codes = _score_checkpointed(
                     args, cbam, works, read_idx, backend)
@@ -587,29 +620,52 @@ def _python_host(args, pargs, bam, works, cell_barcodes, backend,
 def _main(argv: List[str]) -> None:
     """Full run. argv excludes the program name (pass sys.argv[1:])."""
     args = build_parser().parse_args(argv)
-    _PHASE_TIMES.clear()  # fresh per run (tests call _main in-process)
 
     level = {"info": logging.INFO, "debug": logging.DEBUG, "error": logging.ERROR}[args.log_level]
     logging.basicConfig(level=level, stream=sys.stderr,
                         format="%(asctime)s [%(levelname)s] %(message)s")
     log.setLevel(level)
+    # fresh per run (tests call _main in-process); the phase lines of info
+    # logging need the recorder's times too
+    trace.reset(record=bool(args.metrics_json)
+                or log.isEnabledFor(logging.INFO))
 
-    check_inputs_exist(args.fasta, args.vcf, args.bam, args.cell_barcodes,
-                       args.out_matrix, args.ref_matrix)
-    check_device(args.device, args.backend)
-    with process_group(args.distributed) as (dist_rank, dist_count):
-        if args.distributed:
-            args.num_shards, args.shard_index = dist_count, dist_rank
-            log.info("Distributed: process %d/%d", dist_rank, dist_count)
-            if args.device == "cuda":
-                torch.cuda.set_device(dist_rank % torch.cuda.device_count())
-        _run(args, dist_rank, dist_count)
+    with trace.span("vartrix::job"):
+        check_inputs_exist(args.fasta, args.vcf, args.bam,
+                           args.cell_barcodes, args.out_matrix,
+                           args.ref_matrix)
+        check_device(args.device, args.backend)
+        with process_group(args.distributed) as (dist_rank, dist_count):
+            if args.distributed:
+                args.num_shards, args.shard_index = dist_count, dist_rank
+                log.info("Distributed: process %d/%d", dist_rank, dist_count)
+                if args.device == "cuda":
+                    torch.cuda.set_device(dist_rank
+                                          % torch.cuda.device_count())
+            payload = _run(args, dist_rank, dist_count)
+    if payload is not None:
+        import json
+        payload["spans"] = trace.spans()
+        payload["counters"] = trace.counters()
+        with open(args.metrics_json, "wt") as f:
+            json.dump(payload, f, indent=1)
+        log.debug("Wrote metrics JSON")
 
 
-def _run(args, dist_rank: int, dist_count: int) -> None:
+def kernel_launches(counters: Dict[str, int]) -> Dict[str, int]:
+    """Each kernel's launches from the recorder's launch.<kernel>.<mode>
+    counters, both modes together."""
+    return {k: sum(n for name, n in counters.items()
+                   if name.startswith(f"launch.{k}."))
+            + counters.get(f"launch.{k}", 0)
+            for k in ("sw_pair", "sw_banded", "band_build", "band_index")}
+
+
+def _run(args, dist_rank: int, dist_count: int) -> Optional[dict]:
     """The run after argument checks: this process's rows (all of them, or
     its shard), gathered to rank 0 when the run is distributed, which
-    alone writes the outputs."""
+    alone writes the outputs. Returns the --metrics-json payload less its
+    spans and counters (written once the job's span closes), or None."""
     backend = select_backend(args.device, args.backend, args.sw_mode,
                              args.mesh_devices)
 
@@ -662,19 +718,12 @@ def _run(args, dist_rank: int, dist_count: int) -> None:
             or (args.fetch == "auto"
                 and os.path.getsize(args.bam) < AUTO_REGION_BYTES)):
         ex = ThreadPoolExecutor(max_workers=1)
-        early = ex.submit(ColumnarBam, args.bam, pargs.bam_tag.encode(),
-                          max(args.threads, 1))
+        early = ex.submit(trace.carry(_decode_early), args.bam,
+                          pargs.bam_tag.encode(), max(args.threads, 1))
         ex.shutdown(wait=False)
     with _phase("haplotypes"):
         works = prepare_variants(records, fasta, pargs, row_range=row_range)
 
-    def counts():  # each kernel's launches, both its modes together
-        return (sw_cuda.LAUNCHES,
-                sw_cuda.BANDED_LAUNCHES + sw_cuda.BANDED_ROW_LAUNCHES,
-                sw_cuda.BAND_LAUNCHES + sw_cuda.BAND_ROW_LAUNCHES,
-                sw_cuda.INDEX_LAUNCHES)
-
-    before = counts()
     cram_route = None
     if python_host:
         for flag, on in (("--stream", args.stream > 0),
@@ -690,8 +739,7 @@ def _run(args, dist_rank: int, dist_count: int) -> None:
         metrics, cram_route = _native_host(args, pargs, bam, works,
                                            cell_barcodes, backend, early,
                                            matrix, ref_matrix)
-    launches = dict(zip(("sw_pair", "sw_banded", "band_build", "band_index"),
-                        (b - a for a, b in zip(before, counts()))))
+    launches = kernel_launches(trace.counters())
     log.debug("Finished scoring alignments for all variants")
 
     if dist_count > 1:
@@ -701,7 +749,7 @@ def _run(args, dist_rank: int, dist_count: int) -> None:
         metrics = gather_metrics(metrics, dist_count)
         if dist_rank != 0:
             log_metrics(log, metrics)
-            return
+            return None
 
     log_metrics(log, metrics)
 
@@ -725,29 +773,28 @@ def _run(args, dist_rank: int, dist_count: int) -> None:
         log.error("The resulting matrix has a sum of 0. Did you use the --umi "
                   "flag on data without UMIs?")
 
-    if args.metrics_json:
-        import json
-        payload = {
-            "metrics": metrics.as_dict(),
-            "phase_seconds": {k: round(v, 4) for k, v in _PHASE_TIMES.items()},
-            "matrix": {"shape": list(matrix.shape), "nnz": matrix.nnz()},
-            "kernel_launches": launches,
-            "config": {
-                "scoring_method": args.scoring_method, "umi": args.umi,
-                "device": args.device, "backend": args.backend,
-                "host": "python" if python_host else "native",
-                "sw_mode": args.sw_mode,
-                "fetch": args.fetch, "threads": args.threads,
-                "padding": args.padding,
-            },
-        }
-        if args.scoring_method == "coverage":
-            payload["ref_matrix_nnz"] = ref_matrix.nnz()
-        if cram_route is not None:
-            payload["cram_decode"] = cram_route
-        with open(args.metrics_json, "wt") as f:
-            json.dump(payload, f, indent=1)
-        log.debug("Wrote metrics JSON")
+    if not args.metrics_json:
+        return None
+    payload = {
+        "metrics": metrics.as_dict(),
+        "phase_seconds": {k: round(v, 4)
+                          for k, v in trace.phase_seconds().items()},
+        "matrix": {"shape": list(matrix.shape), "nnz": matrix.nnz()},
+        "kernel_launches": launches,
+        "config": {
+            "scoring_method": args.scoring_method, "umi": args.umi,
+            "device": args.device, "backend": args.backend,
+            "host": "python" if python_host else "native",
+            "sw_mode": args.sw_mode,
+            "fetch": args.fetch, "threads": args.threads,
+            "padding": args.padding,
+        },
+    }
+    if args.scoring_method == "coverage":
+        payload["ref_matrix_nnz"] = ref_matrix.nnz()
+    if cram_route is not None:
+        payload["cram_decode"] = cram_route
+    return payload
 
 
 def main() -> None:

@@ -3,6 +3,12 @@
 Equivalent capability to the reference's `bio::io::fasta::IndexedReader`
 (used at reference src/main.rs:661,936-954): random access fetch of
 [start, end) 0-based half-open subsequences via the samtools .fai index.
+
+Reads from the file, the whole-chromosome cache fill among them, run in
+the recorder's span "vartrix::haplotypes.fasta" (utils/trace), the cached
+chromosome's upper-case in its child "vartrix::haplotypes.upper"; the
+counters fasta.bytes_read (bytes read from the file, line ends included)
+and fasta.chrom_fills count the reads.
 """
 
 from __future__ import annotations
@@ -10,6 +16,10 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Dict, List
+
+from ..utils import trace
+
+FASTA_SPAN = "vartrix::haplotypes.fasta"
 
 
 @dataclass(frozen=True)
@@ -100,25 +110,36 @@ class IndexedFasta:
         end = max(start, min(end, e.length))
         if end == start:
             return b""
-        # single-chrom cache: haplotype construction fetches 3 windows
-        # per variant and VCFs are chrom-sorted, so caching the CURRENT
-        # chromosome as raw bytes turns 100k-variant cohorts' fetch cost
-        # from ~2s of seek+read+strip into pure slicing. One chromosome
-        # resident at a time (~250MB worst case on human chr1).
         if self._cache_chrom != chrom:
-            self._miss_counts[chrom] = self._miss_counts.get(chrom, 0) + 1
-            # Interleaved-chrom pattern (this chrom already filled the
-            # cache once and was evicted): a small request goes through
-            # the windowed read instead of re-reading the whole
-            # chromosome again, keeping I/O O(request) rather than
-            # O(switches x chrom_len). The chrom-sorted haplotype path
-            # misses each chrom exactly once and is unaffected.
-            if self._miss_counts[chrom] > 1 and end - start <= 1 << 16:
-                return self._read_range(e, start, end)
-            self._cache_chrom = chrom
-            self._cache_seq = self._read_range(e, 0, e.length)
-            self._cache_upper = None
+            with trace.span(FASTA_SPAN):
+                if not self._fill(e, start, end):
+                    return self._read_range(e, start, end)
         return self._cache_seq[start:end]
+
+    def _fill(self, e: FaiEntry, start: int, end: int) -> bool:
+        """On a cache miss: whether [start, end) of e's chromosome comes
+        from the cache, which this fills, or from a windowed read.
+
+        Single-chrom cache: haplotype construction fetches 3 windows per
+        variant and VCFs are chrom-sorted, so caching the CURRENT
+        chromosome as raw bytes turns 100k-variant cohorts' fetch cost
+        from ~2s of seek+read+strip into pure slicing. One chromosome
+        resident at a time (~250MB worst case on human chr1)."""
+        chrom = e.name
+        self._miss_counts[chrom] = self._miss_counts.get(chrom, 0) + 1
+        # Interleaved-chrom pattern (this chrom already filled the cache
+        # once and was evicted): a small request goes through the windowed
+        # read instead of re-reading the whole chromosome again, keeping
+        # I/O O(request) rather than O(switches x chrom_len). The
+        # chrom-sorted haplotype path misses each chrom exactly once and
+        # is unaffected.
+        if self._miss_counts[chrom] > 1 and end - start <= 1 << 16:
+            return False
+        self._cache_chrom = chrom
+        self._cache_seq = self._read_range(e, 0, e.length)
+        self._cache_upper = None
+        trace.count("fasta.chrom_fills")
+        return True
 
     def fetch_upper(self, chrom: str, start: int, end: int) -> bytes:
         """fetch().upper() with the uppercase conversion done ONCE per
@@ -132,12 +153,13 @@ class IndexedFasta:
         end = max(start, min(end, e.length))
         if end == start:
             return b""
-        if self._cache_chrom != chrom:
-            seq = self.fetch(chrom, start, end)  # may fill the cache
-            if self._cache_chrom != chrom:       # windowed fallback path
-                return seq.upper()
-        if self._cache_upper is None:
-            self._cache_upper = self._cache_seq.upper()
+        if self._cache_chrom != chrom or self._cache_upper is None:
+            with trace.span(FASTA_SPAN):
+                if self._cache_chrom != chrom and not self._fill(e, start,
+                                                                 end):
+                    return self._read_range(e, start, end).upper()
+                with trace.span("vartrix::haplotypes.upper"):
+                    self._cache_upper = self._cache_seq.upper()
         return self._cache_upper[start:end]
 
     def _read_range(self, e, start: int, end: int) -> bytes:
@@ -148,6 +170,7 @@ class IndexedFasta:
         l_off = e.offset + last_line * line_blen + ((end - 1) - last_line * line_full)
         self._fh.seek(f_off)
         raw = self._fh.read(l_off - f_off + 1)
+        trace.count("fasta.bytes_read", len(raw))
         # strip line terminators (anything beyond the per-line base count)
         if line_blen == line_full:
             return raw

@@ -56,6 +56,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import band_torch, sw_banded_torch, sw_torch
 from ._build import band_build_library, banded_kernel_library, kernel_library
 from .band_torch import BandIndex
@@ -90,23 +91,18 @@ BAND_WIDE_KEYS_LX = 1 << 25
 # wider reads keep them in a work buffer in device memory (band_route)
 BAND_SHARED_LX = 1024
 
-# kernel launches (sw_pair, sw_banded: one per read range; band_build: one
-# per chain-pass range; band_index: one per index) since the last reset,
-# sw_banded's and band_build's in their pair mode and, apart, in their
-# plain-row mode (*_ROW_*); the smoke check zeroes them before driving a
-# path and reads them after
-LAUNCHES = 0
-BANDED_LAUNCHES = 0
-BAND_LAUNCHES = 0
-INDEX_LAUNCHES = 0
-BANDED_ROW_LAUNCHES = 0
-BAND_ROW_LAUNCHES = 0
+# The recorder's counters (utils/trace.count) of this module:
+# launch.<kernel>.<mode>, a kernel's launches (sw_pair, sw_banded: one per
+# read range; band_build: one per chain-pass range) in its pair mode
+# ("pair") or plain-row mode ("rows"), and launch.band_index, one per
+# index; route.read.{p2,p4,dense}, the read chunks shipped in each format
+# (host_chunks); route.hap.{p4,dense}, the haplotype matrices shipped
+# 4-bit or dense (device_haps, once per bucket and device); score.chunks;
+# score.h2d_bytes, the bytes _to hands to the scoring device.
 
-# read chunks shipped in each format (host_chunks) and haplotype matrices
-# shipped 4-bit or dense (device_haps, once per bucket and device) since
-# the last reset; tests and the smoke check read the routes taken
-READ_ROUTE_CHUNKS = {"p2": 0, "p4": 0, "dense": 0}
-HAP_ROUTE_BUCKETS = {"p4": 0, "dense": 0}
+
+def _mode(per_read: int) -> str:
+    return "pair" if per_read == 2 else "rows"
 
 _lib: Optional[ctypes.CDLL] = None
 _banded_lib: Optional[ctypes.CDLL] = None
@@ -303,7 +299,6 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
     PAIR_ROUTES (default pair_route(lx, ly)); the kernel refuses a route
     that cannot hold min(lx, ly). With read_lens, reads are codes of
     read_bits bits: lx = 8 x row bytes / read_bits."""
-    global LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
@@ -351,7 +346,7 @@ def _launch(reads: torch.Tensor, read_lens: Optional[torch.Tensor],
         if err != 0:
             raise RuntimeError(f"sw_pair kernel launch failed ({route}): "
                                + lib.sw_pair_error_string(err).decode())
-        LAUNCHES += 1
+        trace.count(f"launch.sw_pair.{_mode(per_read)}")
     return out
 
 
@@ -425,7 +420,6 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
     banded_route(lx, ly)); the kernel refuses a route that cannot hold
     the bucket (packed past ly = 32,767, word32 past min(lx, ly) =
     65,535)."""
-    global BANDED_LAUNCHES, BANDED_ROW_LAUNCHES
     dev = reads.device
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
@@ -470,10 +464,7 @@ def _launch_banded(reads: torch.Tensor, hap_mat: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"sw_banded kernel launch failed ({route}): "
                                + lib.sw_banded_error_string(err).decode())
-        if per_read == 2:
-            BANDED_LAUNCHES += 1
-        else:
-            BANDED_ROW_LAUNCHES += 1
+        trace.count(f"launch.sw_banded.{_mode(per_read)}")
     return out
 
 
@@ -632,7 +623,6 @@ def _launch_index(hap_mat: torch.Tensor,
     kernel refuses the shared route past INDEX_SHARED_LY. The kernel
     writes every row's length, so only a matrix without rows or columns
     gets its zeros here."""
-    global INDEX_LAUNCHES
     dev = hap_mat.device
     _check(hap_mat, "hap_mat", torch.uint8, 2, dev)
     H, ly = hap_mat.shape
@@ -653,7 +643,7 @@ def _launch_index(hap_mat: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"band_index kernel launch failed ({route}): "
                            + lib.band_build_error_string(err).decode())
-    INDEX_LAUNCHES += 1
+    trace.count("launch.band_index")
     return index
 
 
@@ -701,16 +691,16 @@ def band_chain(lib: ctypes.CDLL, problems: tuple, P: int, H: int,
     match scratch (and, on the "global" route, the work rows) fits
     BAND_SCRATCH_BYTES less the index, else one per problem range of
     band_ranges, each in scratch of its own size. Each launch adds one to
-    BAND_LAUNCHES (pair mode) or BAND_ROW_LAUNCHES (plain rows). Returns
-    the first error, or 0."""
-    global BAND_LAUNCHES, BAND_ROW_LAUNCHES
+    launch.band_build.pair (pair mode) or launch.band_build.rows (plain
+    rows). Returns the first error, or 0."""
     lx, ly, per_read = problems[2], problems[3], problems[6]
     dev = jlo.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     budget = max(0, BAND_SCRATCH_BYTES - 12 * H * ly)
     ranges = [(0, P, total)]
     if 12 * total + band_work_bytes(lx, route) * P > budget:
-        e = ends.cpu().numpy()  # every problem's sum, only when needed
+        with trace.span("vartrix::score.sync"):
+            e = ends.cpu().numpy()  # every problem's sum, only when needed
         ranges = [(p0, p1, int(e[p1 - 1] - (e[p0 - 1] if p0 else 0)))
                   for p0, p1 in band_ranges(e, lx, budget, route)]
     for p0, p1, n in ranges:
@@ -725,10 +715,7 @@ def band_chain(lib: ctypes.CDLL, problems: tuple, P: int, H: int,
             jhi.data_ptr(), int(lx >= BAND_WIDE_KEYS_LX), stream)
         if err != 0:
             return err
-        if per_read == 2:
-            BAND_LAUNCHES += 1
-        else:
-            BAND_ROW_LAUNCHES += 1
+        trace.count(f"launch.band_build.{_mode(per_read)}")
     return 0
 
 
@@ -756,8 +743,10 @@ def _launch_band(reads: torch.Tensor, hap_mat: torch.Tensor,
                                torch.cuda.current_stream(dev).cuda_stream)
     if err == 0:
         ends = torch.cumsum(counts, 0)
-        err = band_chain(lib, problems, P, hap_mat.shape[0], ends,
-                         int(ends[-1]), jlo, jhi, band_route(lx))
+        with trace.span("vartrix::score.sync"):
+            total = int(ends[-1])
+        err = band_chain(lib, problems, P, hap_mat.shape[0], ends, total,
+                         jlo, jhi, band_route(lx))
     if err != 0:
         raise RuntimeError("band_build kernel launch failed: "
                            + lib.band_build_error_string(err).decode())
@@ -786,8 +775,11 @@ def band_bounds(reads: torch.Tensor, hap_mat: torch.Tensor,
 
 def _to(a: np.ndarray, dtype, device,
         non_blocking: bool = False) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-        device, non_blocking=non_blocking)
+    """a as a tensor of dtype on device; its bytes count to
+    score.h2d_bytes, whatever the device."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    trace.count("score.h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device, non_blocking=non_blocking)
 
 
 def _check_indices(n_haps: int, *idxs: np.ndarray) -> None:
@@ -810,7 +802,8 @@ def _gather(outs: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
     """The launches' outputs, in order, as one host tensor: those of other
     devices join the first one's, then one copy to the host."""
     first = outs[0].device
-    return torch.cat([o.to(first) for o in outs], dim=dim).cpu()
+    with trace.span("vartrix::score.sync"):
+        return torch.cat([o.to(first) for o in outs], dim=dim).cpu()
 
 
 class SwBackend:
@@ -873,21 +866,24 @@ def device_haps(hap_mat, dev: torch.device) -> torch.Tensor:
     """A bucket's haplotype matrix as uint8 [H, ly] (pad 1) on `dev`: a
     PackedHaps ships its 4-bit rows and lengths and is unpacked there
     (sw_torch.unpack4, once per bucket and device: the JAX package's
-    `_unpack4_jit`, plain XLA there too); any other matrix ships dense."""
-    if isinstance(hap_mat, sw_torch.PackedHaps):
-        HAP_ROUTE_BUCKETS["p4"] += 1
-        return sw_torch.unpack4(_to(hap_mat.packed, np.uint8, dev),
-                                _to(hap_mat.lens, np.int32, dev),
-                                hap_mat.shape[1], pad=1)
-    HAP_ROUTE_BUCKETS["dense"] += 1
-    return _to(hap_mat, np.uint8, dev)
+    `_unpack4_jit`, plain XLA there too); any other matrix ships dense.
+    Counts route.hap.p4 or route.hap.dense."""
+    with trace.span("vartrix::score.haps"):
+        if isinstance(hap_mat, sw_torch.PackedHaps):
+            trace.count("route.hap.p4")
+            return sw_torch.unpack4(_to(hap_mat.packed, np.uint8, dev),
+                                    _to(hap_mat.lens, np.int32, dev),
+                                    hap_mat.shape[1], pad=1)
+        trace.count("route.hap.dense")
+        return _to(hap_mat, np.uint8, dev)
 
 
 def host_chunks(x, idx_ref: np.ndarray, idx_alt: np.ndarray):
     """Yields each chunk of CHUNK_READS reads as host arrays (read_bits,
     reads, their lengths, idx_ref, idx_alt): read_bits 2 or 4 for codes
     with lengths, None for dense bytes with lengths None; it adds one to
-    the format's count in READ_ROUTE_CHUNKS. x is a uint8 [R, lx]
+    score.chunks and to the format's route.read.{p2,p4,dense}, and times
+    each chunk's gather as the span score.gather. x is a uint8 [R, lx]
     array or a provider: `x(start, n)` -> uint8 [n, lx] rows, `.shape` ==
     (R, lx), and optionally `.packed2(start, n)` -> (uint8 [n, lx//4]
     2-bit codes, int32 [n] lengths) and `.packed(start, n)` -> (uint8 [n,
@@ -906,16 +902,18 @@ def host_chunks(x, idx_ref: np.ndarray, idx_alt: np.ndarray):
     for start in range(0, R, CHUNK_READS):
         n = min(CHUNK_READS, R - start)
         got = None
-        if p2:
-            got, bits = x.packed2(start, n), 2
-            p2 = got is not None
-        if got is None and p4:
-            got, bits = x.packed(start, n), 4
-            p4 = got is not None
-        if got is None:
-            bits = None
-            got = (x(start, n) if provider else x[start : start + n]), None
-        READ_ROUTE_CHUNKS[f"p{bits}" if bits else "dense"] += 1
+        with trace.span("vartrix::score.gather"):
+            if p2:
+                got, bits = x.packed2(start, n), 2
+                p2 = got is not None
+            if got is None and p4:
+                got, bits = x.packed(start, n), 4
+                p4 = got is not None
+            if got is None:
+                bits = None
+                got = (x(start, n) if provider else x[start : start + n]), None
+        trace.count(f"route.read.{f'p{bits}' if bits else 'dense'}")
+        trace.count("score.chunks")
         yield (bits, *got, idx_ref[start : start + n],
                idx_alt[start : start + n])
 
@@ -935,14 +933,17 @@ def prefetched(items, depth: int):
     ahead = collections.deque()
     with ThreadPoolExecutor(1, thread_name_prefix="chunk-gather") as ex:
 
+        # the producer thread's spans are children of the caller's
+        advance = trace.carry(next)
+
         def consume():
             for _ in range(depth):
-                ahead.append(ex.submit(next, items, end))
+                ahead.append(ex.submit(advance, items, end))
             while True:
                 item = ahead.popleft().result()
                 if item is end:
                     return
-                ahead.append(ex.submit(next, items, end))
+                ahead.append(ex.submit(advance, items, end))
                 yield item
 
         try:
@@ -966,8 +967,9 @@ def _launch_part(fn, dev: torch.device, hap: torch.Tensor, read_bits, xc,
     def to(a, dtype):
         return None if a is None else _to(a, dtype, dev, non_blocking=True)
 
-    return fn(to(xc, np.uint8), hap, to(ir, np.int32), to(ia, np.int32),
-              to(lens, np.int32), read_bits=read_bits)
+    with trace.span("vartrix::score.launch"):
+        return fn(to(xc, np.uint8), hap, to(ir, np.int32), to(ia, np.int32),
+                  to(lens, np.int32), read_bits=read_bits)
 
 
 def device_context(dev: torch.device):
@@ -1054,7 +1056,7 @@ class BandedSwBackend:
             outs.append(self._batch(xt, yt))
         if not outs:
             return np.zeros(0, np.int32)
-        return torch.cat(outs).cpu().numpy()
+        return _gather(outs).numpy()
 
     def pair_calls_chained(self, x, hap_mat, idx_ref, idx_alt) -> np.ndarray:
         """int8 [R] call codes. x is a uint8 [R, lx] array or a provider
@@ -1066,22 +1068,25 @@ class BandedSwBackend:
         if R == 0:
             return np.zeros(0, np.int8)
         dev = self.device
-        hap = _to(hap_mat, np.uint8, dev)
-        if self.kernel:
-            index = band_index(hap)
-            calls = banded_pair_calls
-        else:
-            calls = sw_banded_torch.banded_pair_calls
+        with trace.span("vartrix::score.haps"):
+            hap = _to(hap_mat, np.uint8, dev)
+            if self.kernel:
+                index = band_index(hap)
+        calls = (banded_pair_calls if self.kernel
+                 else sw_banded_torch.banded_pair_calls)
         outs = []
         for start in range(0, R, CHUNK_READS):
             n = min(CHUNK_READS, R - start)
-            xc = _to(x(start, n) if callable(x) else x[start : start + n],
-                     np.uint8, dev)
-            ir = _to(idx_ref[start : start + n], np.int32, dev)
-            ia = _to(idx_alt[start : start + n], np.int32, dev)
-            if self.kernel:
-                jlo, jhi = band_bounds(xc, hap, ir, ia, index)
-            else:
-                jlo, jhi = band_torch.band_bounds(xc, hap, ir, ia)
-            outs.append(calls(xc, hap, ir, ia, jlo, jhi))
-        return torch.cat(outs).cpu().numpy()
+            with trace.span("vartrix::score.gather"):
+                xs = x(start, n) if callable(x) else x[start : start + n]
+            trace.count("score.chunks")
+            with trace.span("vartrix::score.launch"):
+                xc = _to(xs, np.uint8, dev)
+                ir = _to(idx_ref[start : start + n], np.int32, dev)
+                ia = _to(idx_alt[start : start + n], np.int32, dev)
+                if self.kernel:
+                    jlo, jhi = band_bounds(xc, hap, ir, ia, index)
+                else:
+                    jlo, jhi = band_torch.band_bounds(xc, hap, ir, ia)
+                outs.append(calls(xc, hap, ir, ia, jlo, jhi))
+        return _gather(outs).numpy()
