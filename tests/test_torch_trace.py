@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from vartrix_tpu_torch import driver
-from vartrix_tpu_torch.core.pipeline import (PipelineArgs, collect_reads,
-                                             prepare_variants)
+from vartrix_tpu_torch.core.pipeline import (WINDOW_GAP, PipelineArgs,
+                                             collect_reads, prepare_variants)
 from vartrix_tpu_torch.io.bam import BamReader
 from vartrix_tpu_torch.io.barcodes import load_barcodes
+from vartrix_tpu_torch.io.cram import write_crai, write_cram
 from vartrix_tpu_torch.io.fasta import FastaIndex, IndexedFasta
 from vartrix_tpu_torch.io.vcf import read_vcf_records
 from vartrix_tpu_torch.ops import sw_cuda, sw_torch
@@ -119,16 +120,34 @@ def test_spans_of_each_path(data, tmp_path, path):
         assert spans["vartrix::stream.window"]["n"] == 2
 
 
-def _fasta_bytes(data, chroms):
-    """The bytes of each chromosome's sequence in the file, first base to
+def _window_reads(data, records, pad):
+    """(file bytes, spans) of the padded windows [pos - pad, end + pad) of
+    the biallelic records, merged per chromosome where they overlap or lie
+    under WINDOW_GAP bases apart: bytes from each span's first base to its
     last, line ends included."""
-    total = 0
-    for e in FastaIndex.from_file(data["fasta"] + ".fai").entries:
-        if e.name in chroms:
-            last = e.length - 1
-            total += last // e.linebases * e.linewidth \
-                + last % e.linebases + 1
-    return total
+    entries = {e.name: e
+               for e in FastaIndex.from_file(data["fasta"] + ".fai").entries}
+    wins = {}
+    for r in records:
+        if len(r.alleles) <= 2:
+            e = entries[r.chrom]
+            wins.setdefault(r.chrom, []).append(
+                (max(0, r.pos - pad), min(e.length, r.pos + len(r.ref) + pad)))
+    total = n_spans = 0
+    for chrom, ws in wins.items():
+        e = entries[chrom]
+        merged = []
+        for lo, hi in sorted(ws):
+            if merged and lo < merged[-1][1] + WINDOW_GAP:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        for lo, hi in merged:
+            n_spans += 1
+            total += (hi - 1) // e.linebases * e.linewidth \
+                + (hi - 1) % e.linebases + 1 \
+                - (lo // e.linebases * e.linewidth + lo % e.linebases)
+    return total, n_spans
 
 
 def test_counters_exact(data, tmp_path, monkeypatch):
@@ -163,9 +182,11 @@ def test_counters_exact(data, tmp_path, monkeypatch):
         1 for _ in BamReader(data["bam"]).records())
     assert c["decode.chunks"] == 1  # the whole file
     assert c["score.h2d_bytes"] == shipped[0] > 0
-    assert c["fasta.bytes_read"] == _fasta_bytes(
-        data, {r.chrom for r in records})
-    assert c["fasta.chrom_fills"] == len({r.chrom for r in records})
+    # the haplotypes read their merged windows, no whole chromosome
+    read, n_spans = _window_reads(data, records, pargs.padding)
+    assert c["fasta.bytes_read"] == read > 0
+    assert c["fasta.windows"] == n_spans > 0
+    assert "fasta.chrom_fills" not in c
     assert c["score.buckets"] >= 1 and c["score.chunks"] >= 1
     assert c["route.read.p2"] + c.get("route.read.p4", 0) + c.get(
         "route.read.dense", 0) == c["score.chunks"]
@@ -175,6 +196,19 @@ def test_counters_exact(data, tmp_path, monkeypatch):
     assert not any(k.startswith("launch.") for k in c)
     assert got["kernel_launches"] == dict.fromkeys(
         ("sw_pair", "sw_banded", "band_build", "band_index"), 0)
+
+
+def test_cram_reference_fills_whole_chromosomes(data, tmp_path):
+    """A CRAM's reference-based decode walks whole chromosomes through the
+    FASTA's whole-chromosome cache; the haplotypes read their windows."""
+    cram = str(tmp_path / "reads.cram")
+    bam = BamReader(data["bam"])
+    write_cram(cram, list(zip(bam.ref_names, bam.ref_lens)), bam.records(),
+               fasta_path=data["fasta"])
+    write_crai(cram, fasta_path=data["fasta"])
+    c = run(dict(data, bam=cram), tmp_path, "--host", "python")["counters"]
+    assert c["fasta.chrom_fills"] > 0
+    assert c["fasta.windows"] > 0
 
 
 def test_kernel_launches_sums_the_modes():

@@ -90,6 +90,37 @@ class VariantWork:
         return self._metrics
 
 
+# Two padded windows of a chromosome closer than this many bases are read
+# as one span: one more positioned read and strip of a scattered span costs
+# what reading, stripping, upper-casing and scanning about this many more
+# bases does. tools/fasta_window_gap.py on the host of an NVIDIA H100
+# machine (x86_64, 8 cores; page cache warm): 11.9-16.8 us a span, 7.1-8.3
+# ns a base, 1,563-2,031 bases in three runs; rounded up to 2 KiB.
+WINDOW_GAP = 2048
+
+
+def _merge_windows(wins, gap: int):
+    """[lo, hi) windows -> (spans, shift of each window): the windows
+    sorted and merged where they overlap or lie under `gap` bases apart.
+    Laid end to end as IndexedFasta.fetch_spans_upper returns them, the
+    spans' bytes hold position p of window k at p + shift[k]."""
+    order = sorted(range(len(wins)), key=wins.__getitem__)
+    spans: List[List[int]] = []
+    shift = [0] * len(wins)
+    n = 0  # the bases of the spans before the last
+    for k in order:
+        lo, hi = wins[k]
+        if spans and lo < spans[-1][1] + gap:
+            if hi > spans[-1][1]:
+                spans[-1][1] = hi
+        else:
+            if spans:
+                n += spans[-1][1] - spans[-1][0]
+            spans.append([lo, hi])
+        shift[k] = n - spans[-1][0]
+    return spans, shift
+
+
 def prepare_variants(
     records: List[VcfRecord],
     fasta: IndexedFasta,
@@ -100,53 +131,37 @@ def prepare_variants(
     (semantics of src/main.rs:646-684). row_range=(lo, hi) restricts the
     computed rows for sharded multi-host runs — out-of-range rows are
     silently skipped (no metrics, no haplotypes) but keep their place in
-    the matrix dimensions."""
+    the matrix dimensions.
+
+    Reads only the FASTA bytes the computed rows' padded windows cover, as
+    upstream's per-variant fetch does (src/main.rs:936-954): per
+    chromosome the windows are sorted and merged (WINDOW_GAP), and
+    IndexedFasta.fetch_spans_upper reads each merged span once, with one
+    upper-case and one scan for invalid bytes per chromosome. The
+    whole-chromosome cache (IndexedFasta.fetch) is the CRAM reader's."""
     # valid-chars semantics (src/main.rs:675-684): the check covers the
     # FULL alt haplotype = uppercase ref padding ++ raw ALT bytes. It is
     # decomposed here so the per-record cost is O(len(ALT)):
     #   * ALT bytes: bytes.translate with the valid set as delete table
     #     (leftover bytes == invalid chars), C-speed;
-    #   * padding windows: a per-chrom sorted index of invalid positions
-    #     in the UPPERCASE chromosome (usually just N runs; empty for
-    #     clean genomes), range-tested with searchsorted. Built once per
-    #     chrom — the old per-record numpy scan was ~2s of the
-    #     100k-variant cohort's haplotypes phase.
+    #   * padding windows: the sorted offsets of invalid bytes in the
+    #     chromosome's UPPERCASE spans (usually just N runs; empty for
+    #     clean genomes), range-tested by bisection.
     valid_lut = np.zeros(256, dtype=bool)
     valid_lut[list(args.valid_chars)] = True
     delete_tbl = bytes(args.valid_chars)
-    bad_pos_cache: Dict[str, np.ndarray] = {}
 
-    def bad_positions(chrom: str) -> np.ndarray:
-        arr = bad_pos_cache.get(chrom)
-        if arr is None:
-            with trace.span("vartrix::haplotypes.invalid_index"):
-                seq = fasta.fetch_upper(chrom, 0, fasta.chrom_len(chrom))
-                arr = np.nonzero(~valid_lut[np.frombuffer(seq, np.uint8)])[0]
-            bad_pos_cache[chrom] = arr
-        return arr
-
-    def padding_invalid(chrom: str, a1, b1, a2, b2) -> bool:
-        bp = bad_positions(chrom)
-        if not bp.size:
-            return False
-        return bool(np.searchsorted(bp, a1) < np.searchsorted(bp, b1)
-                    or np.searchsorted(bp, a2) < np.searchsorted(bp, b2))
-
-    # Records are processed GROUPED BY CHROMOSOME (row order preserved
-    # in the output): haplotypes then come from three plain byte slices
-    # per record off one resident uppercase chromosome instead of the
-    # layered fetch/clamp call chain (construct_haplotypes stays as the
-    # readable single-variant constructor; pure function-call overhead
-    # was >60% of the 100k-variant cohort's haplotypes phase), and an
-    # UNSORTED VCF costs one chromosome fill per chrom rather than one
-    # per chrom switch (O(switches x chrom_len) I/O otherwise).
+    # Records are processed GROUPED BY CHROMOSOME (row order preserved in
+    # the output): haplotypes are three plain byte slices per record off
+    # the chromosome's spans, and an UNSORTED VCF reads each chromosome's
+    # spans once.
     by_chrom: Dict[str, List[int]] = {}
     for i, rec in enumerate(records):
         by_chrom.setdefault(rec.chrom, []).append(i)
     pad = args.padding
     works: List[Optional[VariantWork]] = [None] * len(records)
     for chrom, idxs in by_chrom.items():
-        cu, clen = b"", 0
+        rows = []  # (work, ALT or None for a multi-allelic record)
         for i in idxs:
             rec = records[i]
             locus = Locus(rec.chrom, rec.pos, rec.pos + len(rec.ref))
@@ -156,35 +171,60 @@ def prepare_variants(
                 continue
             alleles = rec.alleles
             if len(alleles) > 2:
+                rows.append((w, None))
+            else:
+                rows.append((w, alleles[1] if len(alleles) > 1 else b""))
+        computed = [w for w, alt in rows if alt is not None]
+        if computed:
+            clen = fasta.chrom_len(chrom)
+            wins = []
+            for w in computed:
+                s, e = w.locus.start, w.locus.end
+                if s < 0:  # VCF POS 0: a slice to s counts from the end
+                    wins.append((0, clen))
+                    continue
+                b2 = min(clen, e + pad)
+                wins.append((min(max(0, s - pad), b2), b2))
+            spans, shifts = _merge_windows(wins, WINDOW_GAP)
+            shifts = iter(shifts)  # in the order of computed
+            seq = fasta.fetch_spans_upper(chrom, spans)
+            with trace.span("vartrix::haplotypes.invalid_index"):
+                bad = np.nonzero(
+                    ~valid_lut[np.frombuffer(seq, np.uint8)])[0].tolist()
+        for w, alt in rows:
+            if alt is None:
                 log.info("Variant at %s:%d is multi-allelic. It will be "
-                         "ignored.", rec.chrom, rec.pos)
+                         "ignored.", chrom, w.locus.start)
                 w.metrics.num_multiallelic_recs += 1
                 w.skipped = True
                 continue
-            alt = alleles[1] if len(alleles) > 1 else b""
-            if not cu:
-                clen = fasta.chrom_len(chrom)
-                cu = fasta.fetch_upper(chrom, 0, clen)
-            s, e = locus.start, locus.end
+            sh = next(shifts)
+            s, e = w.locus.start, w.locus.end
             a1 = s - pad
             if a1 < 0:
                 a1 = 0
             b2 = e + pad
             if b2 > clen:
                 b2 = clen
-            rref = cu[a1:b2]
-            alt_hap = cu[a1:s] + alt + cu[e:b2]
+            # the slices of the whole chromosome, moved by the span's
+            # shift: past the chromosome's end a slice stops where seq
+            # does, and where s < 0 seq is the chromosome and sh 0
+            rref = seq[a1 + sh:b2 + sh]
+            alt_hap = seq[a1 + sh:s + sh] + alt + seq[e + sh:b2 + sh]
             # NOTE: the reference checks valid chars on the FULL alt
             # haplotype (src/main.rs:675-684), i.e. including the
             # reference padding — an N in the padded reference sequence
-            # also skips the record.
+            # also skips the record. The padding is the positions [a1, s)
+            # and [e, b2), each within its span or empty.
             invalid = bool(alt_hap) and (
                 bool(alt.translate(None, delete_tbl))
-                or padding_invalid(rec.chrom, a1, s, e, b2))
+                or (bool(bad) and (
+                    bisect_left(bad, a1 + sh) < bisect_left(bad, s + sh)
+                    or bisect_left(bad, e + sh) < bisect_left(bad, b2 + sh))))
             if invalid:
                 log.warning(
                     "Variant at %s:%d has invalid alternative characters. "
-                    "This record will be ignored.", rec.chrom, rec.pos)
+                    "This record will be ignored.", chrom, w.locus.start)
                 w.metrics.num_invalid_recs += 1
                 w.skipped = True
                 continue

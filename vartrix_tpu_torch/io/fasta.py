@@ -4,22 +4,40 @@ Equivalent capability to the reference's `bio::io::fasta::IndexedReader`
 (used at reference src/main.rs:661,936-954): random access fetch of
 [start, end) 0-based half-open subsequences via the samtools .fai index.
 
-Reads from the file, the whole-chromosome cache fill among them, run in
-the recorder's span "vartrix::haplotypes.fasta" (utils/trace), the cached
-chromosome's upper-case in its child "vartrix::haplotypes.upper"; the
-counters fasta.bytes_read (bytes read from the file, line ends included)
-and fasta.chrom_fills count the reads.
+Two paths, which share only the low-level read and line-end strip
+(`_read_range`: one positioned read, then a vectorised strip from any
+start column):
+
+  * windows (`fetch_spans_upper`): the haplotypes' padded windows, which
+    core/pipeline.prepare_variants merges into a few spans a chromosome.
+    Each span is read once and nothing is cached, so the work follows the
+    variants, not the genome, as upstream's per-variant fetch
+    (src/main.rs:936-954) does.
+  * whole chromosomes (`fetch`, `fetch_upper`): the first request on a
+    chromosome reads all of it into a one-chromosome cache. The CRAM
+    reader's reference-based decode walks whole chromosomes, which this
+    suits; core/haplotypes.construct_haplotypes, the single-variant
+    constructor, uses it too.
+
+Reads run in the recorder's span "vartrix::haplotypes.fasta" (utils/trace),
+their upper-case in its child "vartrix::haplotypes.upper"; the counters
+fasta.bytes_read (bytes read from the file, line ends included),
+fasta.windows (spans read by `fetch_spans_upper`) and fasta.chrom_fills
+(whole-chromosome cache fills) count the reads.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
 
 from ..utils import trace
 
 FASTA_SPAN = "vartrix::haplotypes.fasta"
+UPPER_SPAN = "vartrix::haplotypes.upper"
 
 
 @dataclass(frozen=True)
@@ -120,19 +138,17 @@ class IndexedFasta:
         """On a cache miss: whether [start, end) of e's chromosome comes
         from the cache, which this fills, or from a windowed read.
 
-        Single-chrom cache: haplotype construction fetches 3 windows per
-        variant and VCFs are chrom-sorted, so caching the CURRENT
-        chromosome as raw bytes turns 100k-variant cohorts' fetch cost
-        from ~2s of seek+read+strip into pure slicing. One chromosome
-        resident at a time (~250MB worst case on human chr1)."""
+        Single-chrom cache: the CRAM reader's reference-based decode asks
+        for consecutive stretches of one chromosome at a time, so caching
+        the CURRENT chromosome as raw bytes turns its fetches into
+        slicing. One chromosome resident at a time (~250MB worst case on
+        human chr1)."""
         chrom = e.name
         self._miss_counts[chrom] = self._miss_counts.get(chrom, 0) + 1
         # Interleaved-chrom pattern (this chrom already filled the cache
         # once and was evicted): a small request goes through the windowed
         # read instead of re-reading the whole chromosome again, keeping
-        # I/O O(request) rather than O(switches x chrom_len). The
-        # chrom-sorted haplotype path misses each chrom exactly once and
-        # is unaffected.
+        # I/O O(request) rather than O(switches x chrom_len).
         if self._miss_counts[chrom] > 1 and end - start <= 1 << 16:
             return False
         self._cache_chrom = chrom
@@ -158,39 +174,50 @@ class IndexedFasta:
                 if self._cache_chrom != chrom and not self._fill(e, start,
                                                                  end):
                     return self._read_range(e, start, end).upper()
-                with trace.span("vartrix::haplotypes.upper"):
+                with trace.span(UPPER_SPAN):
                     self._cache_upper = self._cache_seq.upper()
         return self._cache_upper[start:end]
 
-    def _read_range(self, e, start: int, end: int) -> bytes:
-        line_full, line_blen = e.linebases, e.linewidth
-        first_line = start // line_full
-        last_line = (end - 1) // line_full
-        f_off = e.offset + first_line * line_blen + (start - first_line * line_full)
-        l_off = e.offset + last_line * line_blen + ((end - 1) - last_line * line_full)
-        self._fh.seek(f_off)
-        raw = self._fh.read(l_off - f_off + 1)
-        trace.count("fasta.bytes_read", len(raw))
-        # strip line terminators (anything beyond the per-line base count)
-        if line_blen == line_full:
+    def fetch_spans_upper(self, chrom: str,
+                          spans: Sequence[Tuple[int, int]]) -> bytes:
+        """The bases of each [start, end) of `spans`, upper-cased, end to
+        end in one bytes object: span k's begin at the sum of the earlier
+        spans' lengths. Spans lie within the chromosome; an empty one
+        reads nothing. One positioned read per span and one upper-case
+        per call; the whole-chromosome cache is neither read nor
+        filled."""
+        e = self.index.by_name.get(chrom)
+        if e is None:
+            raise KeyError(f"Requested chromosome {chrom} was not found in fasta")
+        with trace.span(FASTA_SPAN):
+            parts = [self._read_range(e, a, b) for a, b in spans if b > a]
+            trace.count("fasta.windows", len(parts))
+            with trace.span(UPPER_SPAN):
+                return b"".join(parts).upper()
+
+    def _read_range(self, e: FaiEntry, start: int, end: int) -> bytes:
+        """The bases [start, end) of e's sequence (0 <= start < end <=
+        e.length): one positioned read of the file's bytes from the first
+        base to the last, then the line ends stripped as the columns at or
+        past linebases of a [lines, linewidth] view, its first line
+        entered at the start's column."""
+        lb, lw = e.linebases, e.linewidth
+        first, col0 = divmod(start, lb)
+        last, col1 = divmod(end - 1, lb)
+        size = (last - first) * lw + col1 - col0 + 1
+        at = e.offset + first * lw + col0
+        if lw == lb:
+            raw = os.pread(self._fh.fileno(), size, at)
+            trace.count("fasta.bytes_read", len(raw))
             return raw
+        rows = last - first + 1
+        buf = np.empty(rows * lw, np.uint8)
+        got = os.preadv(self._fh.fileno(),
+                        [memoryview(buf)[col0:col0 + size]], at)
+        trace.count("fasta.bytes_read", got)
         n = end - start
-        if start % line_full == 0:
-            # line-aligned read (the whole-chromosome cache fill):
-            # vectorized strip via a [rows, line_blen] view
-            import numpy as np
-            full_rows = len(raw) // line_blen
-            arr = np.frombuffer(raw[: full_rows * line_blen], np.uint8)
-            body = arr.reshape(full_rows, line_blen)[:, :line_full].tobytes()
-            tail = raw[full_rows * line_blen :][:line_full]
-            return (body + tail)[:n]
-        out = bytearray()
-        pos = start
-        i = 0
-        while len(out) < n:
-            line_rem = line_full - (pos % line_full)
-            take = min(line_rem, n - len(out))
-            out += raw[i : i + take]
-            i += take + (line_blen - line_full)  # skip terminator bytes
-            pos += take
-        return bytes(out)
+        if got < size:  # a file shorter than its index: the bases read
+            full, rem = divmod(col0 + got, lw)
+            n = full * lb + min(rem, lb) - col0
+        bases = buf.reshape(rows, lw)[:, :lb].reshape(-1)
+        return bases[col0:col0 + n].tobytes()
