@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..constants import MIN_SCORE
+from ..utils import trace
 
 
 def _pack_shift(lo_vals, hi_vals, min_shift):
@@ -61,6 +62,9 @@ def aggregate_flat(cells_l, umis_l, scores_l, use_umi):
 
     -> (rows, cols, ref_count, alt_count, unk_count) sorted by (row, col),
     one entry per (variant, cell) group with >= 1 filter-surviving read.
+
+    With UMIs, the vote (the (variant, cell, UMI) keys packed, np.unique
+    over them, the 0.75 vote) is the span "vartrix::aggregate.umi".
     """
     n_reads = sum(len(c) for c in cells_l)
     if n_reads == 0:
@@ -80,19 +84,21 @@ def aggregate_flat(cells_l, umis_l, scores_l, use_umi):
     kcg = cg[kept]
     kcall = call[kept]
     if use_umi:
-        umis = np.concatenate(umis_l).astype(np.int64)[kept]
-        ush = _pack_shift(umis, kcg, 30)
-        ug_key = (kcg.astype(np.int64) << ush) | umis
-        ug_uniq, ug = np.unique(ug_key, return_inverse=True)
-        nu = len(ug_uniq)
-        refc = np.bincount(ug, weights=(kcall == 1), minlength=nu)
-        altc = np.bincount(ug, weights=(kcall == 2), minlength=nu)
-        unkc = np.bincount(ug, weights=(kcall == 3), minlength=nu)
-        tot = refc + altc + unkc
-        # frac >= 0.75 as exact integer compare (4*c >= 3*tot)
-        ucall = np.where(4 * altc >= 3 * tot, 2,
-                         np.where(4 * refc >= 3 * tot, 1, 3)).astype(np.int8)
-        gcg = (ug_uniq >> ush).astype(np.int64)
+        with trace.span("vartrix::aggregate.umi"):
+            umis = np.concatenate(umis_l).astype(np.int64)[kept]
+            ush = _pack_shift(umis, kcg, 30)
+            ug_key = (kcg.astype(np.int64) << ush) | umis
+            ug_uniq, ug = np.unique(ug_key, return_inverse=True)
+            nu = len(ug_uniq)
+            refc = np.bincount(ug, weights=(kcall == 1), minlength=nu)
+            altc = np.bincount(ug, weights=(kcall == 2), minlength=nu)
+            unkc = np.bincount(ug, weights=(kcall == 3), minlength=nu)
+            tot = refc + altc + unkc
+            # frac >= 0.75 as exact integer compare (4*c >= 3*tot)
+            ucall = np.where(4 * altc >= 3 * tot, 2,
+                             np.where(4 * refc >= 3 * tot, 1,
+                                      3)).astype(np.int8)
+            gcg = (ug_uniq >> ush).astype(np.int64)
     else:
         ucall = kcall
         gcg = kcg

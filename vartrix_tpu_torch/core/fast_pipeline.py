@@ -70,7 +70,8 @@ def collect_reads_fast(
     (variant, read) candidate list is materialized with repeat/cumsum
     indexing, the filter chain runs as boolean masks over that flat list,
     and per-variant metrics are bincounts. Scales to 100k+ variants
-    without per-variant Python work."""
+    without per-variant Python work. With UMIs, mapping the UB tags to
+    ids is the span "vartrix::collect.ub"."""
     n = cbam.n
     V = len(works)
     empty = (np.zeros(0, np.int64), np.zeros(0, np.int32), np.zeros(0, np.int64))
@@ -85,7 +86,10 @@ def collect_reads_fast(
     key_s = (tid_s << 34) | (pos_s + (1 << 32))  # pos may be small/0
 
     cb_idx = cbam.cb_indices(cell_barcodes)
-    ub_id = cbam.ub_ids() if args.use_umi else None
+    ub_id = None
+    if args.use_umi:
+        with trace.span("vartrix::collect.ub"):
+            ub_id = cbam.ub_ids()
     n_itv = np.diff(cbam.itv_off)
     max_span = int((cbam.ref_end[:n] - cbam.pos[:n]).max())
 

@@ -66,7 +66,7 @@ from .ops import sw_cuda
 from .parallel.mesh import make_mesh
 from .parallel.multihost import (gather_metrics, gather_triplets,
                                  process_group, shard_range)
-from .utils import trace
+from .utils import heap, trace
 from .utils.metrics import Metrics, log_metrics
 
 log = logging.getLogger("vartrix")
@@ -625,6 +625,7 @@ def _main(argv: List[str]) -> None:
     logging.basicConfig(level=level, stream=sys.stderr,
                         format="%(asctime)s [%(levelname)s] %(message)s")
     log.setLevel(level)
+    heap.keep_freed()
     # fresh per run (tests call _main in-process); the phase lines of info
     # logging need the recorder's times too
     trace.reset(record=bool(args.metrics_json)
