@@ -295,9 +295,13 @@ def decode_cram(args, pargs, bam: CramReader, works):
 
 def _decoded(cbam: ColumnarBam, chunks) -> ColumnarBam:
     """Counts a decode: its records, and the merged chunks (or CRAM
-    containers) it read, a whole file counting as one."""
+    containers) it read, a whole file counting as one; of a region decode
+    also the BGZF blocks inflated and the most any one thread inflated."""
     trace.count("decode.records", cbam.n)
     trace.count("decode.chunks", 1 if chunks is None else len(chunks))
+    if cbam.loader == "regions":
+        trace.count("decode.blocks", cbam.blocks)
+        trace.count("decode.blocks_thread_max", cbam.blocks_thread_max)
     return cbam
 
 

@@ -1,4 +1,5 @@
-"""ctypes wrappers for libgenomio (native/genomio.cpp): parallel BAM decode
+"""ctypes wrappers for libgenomio (csrc/genomio.cpp, the port's copy of
+native/genomio.cpp): parallel BAM decode
 into columnar NumPy arrays (the whole file, only the chunks of an indexed
 region plan, or an in-memory BAM stream), padded sequence gathers for the
 scoring batches, and Matrix Market body formatting; and for libcramio
@@ -67,6 +68,9 @@ def get_lib() -> ctypes.CDLL:
         lib.gio_bam_ref_name.argtypes = [vp, ctypes.c_int32]
         lib.gio_bam_ref_len.restype = ctypes.c_int32
         lib.gio_bam_ref_len.argtypes = [vp, ctypes.c_int32]
+        for name in ("gio_bam_n_blocks", "gio_bam_blocks_thread_max"):
+            getattr(lib, name).restype = ctypes.c_int64
+            getattr(lib, name).argtypes = [vp]
         ptr_specs = {
             "gio_bam_tid": ctypes.c_int32, "gio_bam_pos": ctypes.c_int32,
             "gio_bam_ref_end": ctypes.c_int32, "gio_bam_mapq": ctypes.c_uint8,
@@ -270,7 +274,10 @@ class ColumnarBam:
     uint8 array: cram_decode_native's output), that stream, `path` then
     only naming the input in errors. `loader` names the decode taken:
     "bytes", "regions", "bounded" (the bounded-memory whole-file loader,
-    from STREAM_DECODE_BYTES) or "whole"."""
+    from STREAM_DECODE_BYTES) or "whole". The region loader inflates the
+    BGZF blocks of all the plan's chunks across the threads: `blocks` is
+    how many it inflated and `blocks_thread_max` the most any one thread
+    inflated (both 0 for the other loaders)."""
 
     def __init__(self, path: str, cb_tag: bytes = b"CB", n_threads: int = 0,
                  chunks=None, bam_bytes=None):
@@ -310,6 +317,8 @@ class ColumnarBam:
         self.ref_lens = [int(lib.gio_bam_ref_len(self._h, i))
                          for i in range(n_refs)]
         self.tid_by_name = {nm: i for i, nm in enumerate(self.ref_names)}
+        self.blocks = int(lib.gio_bam_n_blocks(self._h))
+        self.blocks_thread_max = int(lib.gio_bam_blocks_thread_max(self._h))
 
         def arr(name, count):
             if count == 0:

@@ -6,8 +6,10 @@ Six shared libraries, each with a plain C interface loaded through ctypes:
     ``csrc/sw_banded.cu`` (banded Smith-Waterman) and ``csrc/band_build.cu``
     (the band bounds of ``--sw-mode banded``), each compiled by nvcc for
     Hopper (``sm_90a``);
-  * the host BAM/matrix library, ``native/genomio.cpp`` at the repository
-    root, compiled by g++ with the flags of ``native/build.sh``;
+  * the host BAM/matrix library, ``csrc/genomio.cpp``, the port's own copy
+    of ``native/genomio.cpp`` (its region loader inflates the blocks of all
+    of a plan's chunks across the threads), compiled by g++ with the flags
+    of ``native/build.sh``;
   * the host CRAM decoder, ``native/cramio.cpp``, compiled and linked as
     ``native/build.sh`` does (zlib, liblzma, libbz2's runtime soname); on a
     machine without liblzma's development files, against the declaration
@@ -39,7 +41,7 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "vartrix_tpu_torch")
 KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_pair.cu")
 BANDED_KERNEL_SRC = os.path.join(PKG_DIR, "csrc", "sw_banded.cu")
 BAND_BUILD_SRC = os.path.join(PKG_DIR, "csrc", "band_build.cu")
-GENOMIO_SRC = os.path.join(REPO_ROOT, "native", "genomio.cpp")
+GENOMIO_SRC = os.path.join(PKG_DIR, "csrc", "genomio.cpp")
 CRAMIO_SRC = os.path.join(REPO_ROOT, "native", "cramio.cpp")
 COMPAT_INCLUDE = os.path.join(PKG_DIR, "csrc", "compat")
 BAND_BOUNDS_SRC = os.path.join(PKG_DIR, "csrc", "band_bounds.cpp")
