@@ -15,6 +15,7 @@ import torch
 
 from test_torch_banded import BOUND_FAMILIES, _seqs, family, pair_case, \
     wide_case
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.ops.sw_native import banded_bounds_batch_native
 from vartrix_tpu_torch.ops import band_torch, sw_banded_torch, sw_cuda, \
     sw_native

@@ -32,6 +32,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 from test_torch_band_build import repetitive_case, short_case
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu_torch.ops import band_torch, sw_banded_torch, sw_cuda, \
     sw_torch
 from vartrix_tpu_torch.utils import trace

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core.agg_numpy import codes_from_scores
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.ops.sw_native import (banded_bounds_batch_native,

@@ -32,6 +32,7 @@ from test_torch_sw_packed import (P1, P8, PM1, PM6, from_u32, halves,
                                   splat, to_u32, true_lengths,
                                   viaddmax_s16x2, viaddmax_s16x2_relu,
                                   vimax3_s16x2)
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.ops.sw_native import banded_sw_chained_batch_native
 from vartrix_tpu.ops.sw_pallas_v2 import make_banded_tpu_scorer
 from vartrix_tpu_torch.ops import (band_torch, sw_banded_torch, sw_cuda,

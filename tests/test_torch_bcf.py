@@ -4,8 +4,8 @@ writers give the same bytes, and a BCF run's matrix is byte-equal to the
 JAX package's and to the port's VCF run."""
 
 import pytest
-import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.io import bcf as jbcf
 from vartrix_tpu.io.vcf import VcfRecord as JaxVcfRecord
@@ -19,16 +19,6 @@ SPECIAL = [("c1", 10, b"AT", []),
            ("c1", 50, b"A", [b"C", b"G"]),
            ("c1", 99, b"G", [b"G" + b"A" * 20]),  # overflow-length allele
            ("c2", 5, b"C" * 16, [b"T"])]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fields(recs):

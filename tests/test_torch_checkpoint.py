@@ -7,8 +7,8 @@ byte-equal to the run without a checkpoint and to the JAX package's."""
 import os
 
 import pytest
-import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core.checkpoint import manifest_key as jax_manifest_key
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
@@ -17,16 +17,6 @@ from vartrix_tpu_torch.driver import _main as port_main
 from vartrix_tpu_torch.ops import sw_cuda
 
 N_VARIANTS = 9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -17,8 +17,8 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.io import cram as jcram
 from vartrix_tpu.io.bam import BamReader as JaxBamReader
@@ -47,16 +47,6 @@ MODES = {
     "coverage_umi": ["-s", "coverage", "--umi"],
     "alt_frac": ["-s", "alt_frac"],
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core import agg_device_driver as jdriver
 from vartrix_tpu.core import device_agg as jagg
 from vartrix_tpu.driver import _main as jax_main

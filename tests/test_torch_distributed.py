@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import scipy.io
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
 from vartrix_tpu_torch import driver as port_driver

@@ -8,6 +8,7 @@ the window arithmetic. The tolerance is exact equality."""
 import numpy as np
 import pytest
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core import pipeline as jpipe
 from vartrix_tpu.io.fasta import IndexedFasta as JaxFasta
 from vartrix_tpu.io.vcf import read_vcf_records as jax_vcf

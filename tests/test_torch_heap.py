@@ -4,6 +4,7 @@ being unmapped and faulted in again."""
 
 import resource
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu_torch.utils import heap
 
 MIB = 2 ** 20

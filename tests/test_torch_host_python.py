@@ -12,10 +12,10 @@ import logging
 
 import numpy as np
 import pytest
-import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core import calls as jcalls
 from vartrix_tpu.core import pipeline as jpipe
 from vartrix_tpu.driver import _main as jax_main
@@ -42,16 +42,6 @@ MODES = {
     "coverage_umi": ["-s", "coverage", "--umi"],
     "alt_frac": ["-s", "alt_frac"],
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -9,9 +9,9 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 import scipy.io
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.parallel.multihost import _mtx_header as jax_mtx_header
 from vartrix_tpu.parallel.multihost import merge_partials as jax_merge
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
@@ -19,16 +19,6 @@ from vartrix_tpu_torch.driver import _main as port_main
 from vartrix_tpu_torch.parallel import multihost
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

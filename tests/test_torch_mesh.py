@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.parallel import mesh as jmesh
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core import fast_pipeline as jax_fast
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.io import bam_native as jax_bam_native

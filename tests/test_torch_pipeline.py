@@ -7,6 +7,7 @@ import json
 
 import pytest
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
 from vartrix_tpu_torch.driver import _main as port_main

@@ -11,6 +11,7 @@ import threading
 import numpy as np
 import pytest
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.ops import sw_pallas_v2
 from vartrix_tpu.ops.sw_pallas_v2 import PackedHaps as JaxPackedHaps
 from vartrix_tpu_torch.io import bam_native

@@ -9,19 +9,10 @@ import os
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu_torch.driver import _main as port_main
 from vartrix_tpu_torch.utils import trace
 from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -4,8 +4,10 @@ whatever the plan's shape. Its columns against the whole-file loader and
 the JAX package's region loader on hand-made plans over a multi-block BAM
 (one chunk over the whole file, chunks that share a boundary block, a
 chunk whose end falls inside a record), a corrupt block, and the block
-counters the driver records."""
+counters the driver records. And the four loaders, which share these
+passes, against the JAX package's on a header of several blocks."""
 
+import gzip
 import json
 import math
 import shutil
@@ -13,27 +15,18 @@ import struct
 
 import numpy as np
 import pytest
-import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.io.bam_native import ColumnarBam as JaxColumnarBam
 from vartrix_tpu_torch import driver
 from vartrix_tpu_torch.io import bai as pbai
 from vartrix_tpu_torch.io import bam_native as pbn
-from vartrix_tpu_torch.io.bam import BamHeader
+from vartrix_tpu_torch.io.bam import BamHeader, _header_end
+from vartrix_tpu_torch.io.bam_writer import write_bam
 from vartrix_tpu_torch.utils.synth import SynthConfig, generate_dataset
 
 COLUMNS = ("tid", "pos", "ref_end", "mapq", "flag", "seq_off", "seq_pool",
            "itv_off", "itv_pool", "cb_off", "cb_pool", "ub_off", "ub_pool")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -226,3 +219,38 @@ def test_driver_counts_the_blocks(ds, layout, tmp_path, fetch):
     assert c["decode.blocks"] == _plan_blocks(plan, blocks) > threads
     assert 0 < c["decode.blocks_thread_max"] <= math.ceil(
         c["decode.blocks"] / threads)
+
+
+@pytest.fixture(scope="module")
+def long_header(ds, tmp_path_factory):
+    """ds's records behind 6,000 more references, whose header spans four
+    BGZF blocks: (the BAM's path, its records' (vbeg, vend))."""
+    with open(ds["bam"], "rb") as f:
+        stream = gzip.decompress(f.read())
+    h = BamHeader(ds["bam"])
+    refs = list(zip(h.ref_names, h.ref_lens)) + [
+        (f"pad{i}", 1000) for i in range(6000)]
+    bam = str(tmp_path_factory.mktemp("long_header") / "reads.bam")
+    write_bam(bam, refs, [stream[_header_end(stream):]], write_index=False)
+    return bam, [(b, e) for b, e, *_ in pbai._bam_records(bam)[1]]
+
+
+@pytest.mark.parametrize("loader", ["whole", "bounded", "regions", "bytes"])
+def test_loaders_after_a_header_of_several_blocks(long_header, monkeypatch,
+                                                  loader):
+    """Records that begin partway through a block, after a header that
+    spans several, decode alike in each loader and in the JAX package's."""
+    bam, recs = long_header
+    assert recs[0][0] >> 16 > 0 and recs[0][0] & 0xFFFF
+    kwargs = {}
+    if loader == "bounded":
+        monkeypatch.setattr(pbn, "STREAM_DECODE_BYTES", 0)
+        monkeypatch.setattr(pbn, "STREAM_SEGMENT_BYTES", 1 << 20)
+    elif loader == "regions":
+        kwargs["chunks"] = [(recs[0][0], recs[-1][1])]
+    elif loader == "bytes":
+        with open(bam, "rb") as f:
+            kwargs["bam_bytes"] = gzip.decompress(f.read())
+    got = pbn.ColumnarBam(bam, b"CB", 2, **kwargs)
+    assert got.loader == loader and got.n == len(recs) > 0
+    _assert_columns_equal(got, JaxColumnarBam(bam, b"CB"))

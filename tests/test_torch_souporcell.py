@@ -21,6 +21,7 @@ from benchmark import harness
 from benchmark.inputs import bam, synth
 from benchmark.reference import mtx
 from benchmark.reference import vartrix as reference
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu_torch import driver
 
 CELL = "souporcell-dense"
@@ -31,16 +32,6 @@ SEED = 2 ** 31 + 2001
 UMI_SPANS = {"vartrix::collect.ub": "vartrix::collect",
              "vartrix::aggregate.umi": "vartrix::aggregate"}
 CPU = ["--device", "cpu", "--backend", "torch"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

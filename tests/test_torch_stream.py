@@ -8,8 +8,8 @@ import json
 import shutil
 
 import pytest
-import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.driver import _main as jax_main
 from vartrix_tpu.utils.synth import SynthConfig, generate_dataset
 from vartrix_tpu_torch.driver import _main as port_main
@@ -21,16 +21,6 @@ MODES = {
 }
 PORT = ["--device", "cpu", "--backend", "torch"]
 JAX = ["--backend", "cpu", "--host", "native"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

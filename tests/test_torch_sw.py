@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.core.agg_numpy import codes_from_scores
 from vartrix_tpu.ops.sw_numpy import sw_score_single
 from vartrix_tpu.ops.sw_pallas import _on_tpu, sw_scores_batch_tpu

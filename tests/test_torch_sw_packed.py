@@ -19,6 +19,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.ops.sw_pallas_v2 import (_sw_pair_chained, _sw_pair_quad,
                                           _sw_pair_quad_calls,
                                           _sw_pair_quad_calls_p2)

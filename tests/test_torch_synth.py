@@ -6,6 +6,7 @@ import os
 import numpy as np
 import pytest
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu.utils import synth as jax_synth
 from vartrix_tpu_torch.utils import synth as port_synth
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
 from vartrix_tpu_torch import driver
 from vartrix_tpu_torch.core.pipeline import (WINDOW_GAP, PipelineArgs,
                                              collect_reads, prepare_variants)
@@ -51,16 +52,6 @@ PATHS = {
 }
 # spans that run on a worker thread: their parent is on another thread
 WORKER = {"vartrix::decode.early", "vartrix::score.gather"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The plain scorer's many small ops on one thread: with the suite's
-    workers sharing the cores, spinning intra-op threads slow it 50x."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -1,21 +1,28 @@
 // libgenomio: native genomics-file runtime for the port's host pipeline
-// (vartrix_tpu_torch), a copy of native/genomio.cpp that differs from it
-// only in the region loader (gio_bam_load_regions) and its block counters.
+// (vartrix_tpu_torch).
 //
 // Re-provides the htslib capabilities the reference consumes via
 // rust-htslib (reference src/main.rs:260-264,822-896), redesigned
-// for batch processing: instead of a per-record iterator API, the whole
-// BAM is decoded in one parallel pass into COLUMNAR arrays (structure of
-// arrays) that Python wraps as zero-copy NumPy views and the pipeline
-// consumes with vectorized operations.
+// for batch processing: instead of a per-record iterator API, a BAM is
+// decoded in parallel passes into COLUMNAR arrays (structure of arrays)
+// that Python wraps as zero-copy NumPy views and the pipeline consumes
+// with vectorized operations.
 //
-//   * BGZF: block boundaries scanned serially (cheap), blocks inflated in
-//     parallel with zlib raw-deflate.
-//   * BAM records: offsets indexed serially (block_size hops), then
-//     decoded in parallel: positions/flags/mapq, decoded sequence chars,
-//     CIGAR-derived ref_end, aligned-reference intervals (M/=/X/D merged,
-//     N splits — the useful_alignment semantics of src/main.rs:790-806),
-//     and the CB-configurable / UB aux Z-tags.
+// One set of passes serves the four BAM loaders:
+//   * BGZF: block headers parsed serially (bgzf_block), blocks inflated in
+//     parallel with zlib raw-deflate (inflate_blocks).
+//   * BAM: the header parsed from an inflated prefix (bam_header), record
+//     offsets indexed serially by block_size hops (index_records), then
+//     the records decoded in two parallel passes (decode_records):
+//     positions/flags/mapq, decoded sequence chars, CIGAR-derived ref_end,
+//     aligned-reference intervals (M/=/X/D merged, N splits — the
+//     useful_alignment semantics of src/main.rs:790-806), and the
+//     CB-configurable / UB aux Z-tags.
+// The region loader (gio_bam_load_regions) runs them over the chunks of an
+// index plan, and the whole-file loader (gio_bam_load) is the region
+// loader over one chunk, from the first record to the end of the file.
+// The bounded loader (gio_bam_load_stream) runs them segment by segment,
+// the bytes loader (gio_bam_load_bytes) over a BAM stream in memory.
 //
 // C ABI for ctypes; buffers are owned by the handle and freed with it.
 //
@@ -24,6 +31,7 @@
 #include <unistd.h>
 #include <zlib.h>
 
+#include <algorithm>
 #include <array>
 #include <atomic>
 #include <charconv>
@@ -73,17 +81,17 @@ struct GioBam {
   std::vector<int32_t> tid, pos, ref_end;
   std::vector<uint8_t> mapq;
   std::vector<uint16_t> flag;
-  std::vector<int64_t> seq_off;   // n+1
-  std::vector<uint8_t> seq_pool;  // decoded chars
-  std::vector<int64_t> itv_off;   // n+1, into itv_pool (pairs)
-  std::vector<int32_t> itv_pool;  // [start, end) aligned-ref intervals
-  std::vector<int64_t> cb_off;    // n+1
+  std::vector<int64_t> seq_off{0};  // n+1
+  std::vector<uint8_t> seq_pool;    // decoded chars
+  std::vector<int64_t> itv_off{0};  // n+1, into itv_pool (pairs)
+  std::vector<int32_t> itv_pool;    // [start, end) aligned-ref intervals
+  std::vector<int64_t> cb_off{0};   // n+1
   std::vector<uint8_t> cb_pool;
-  std::vector<int64_t> ub_off;    // n+1
+  std::vector<int64_t> ub_off{0};   // n+1
   std::vector<uint8_t> ub_pool;
   std::string error;
-  // region loader: BGZF blocks inflated in its parallel pass, and the most
-  // of them any one worker inflated (0 for the other loaders)
+  // region and whole-file loaders: BGZF blocks inflated in their parallel
+  // pass, and the most of them any one worker inflated (0 for the others)
   int64_t n_blocks = 0, blocks_thread_max = 0;
 };
 
@@ -200,20 +208,21 @@ static void effective_cigar(const uint8_t* cig, uint16_t n_cigar,
   }
 }
 
-// Decode passes shared by the whole-file and region loaders: rec_ptr[i]
-// points at record i's 4-byte block_size prefix in some inflated buffer.
+// Appends n records to h's columns: rec_ptr[i] points at record i's 4-byte
+// block_size prefix in some inflated buffer.
 static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
                            int64_t n, const char* cb_tag, int n_threads) {
-  h->n = n;
-  h->tid.resize(n);
-  h->pos.resize(n);
-  h->ref_end.resize(n);
-  h->mapq.resize(n);
-  h->flag.resize(n);
-  h->seq_off.resize(n + 1);
-  h->itv_off.resize(n + 1);
-  h->cb_off.resize(n + 1);
-  h->ub_off.resize(n + 1);
+  int64_t base = h->n;
+  h->n += n;
+  h->tid.resize(h->n);
+  h->pos.resize(h->n);
+  h->ref_end.resize(h->n);
+  h->mapq.resize(h->n);
+  h->flag.resize(h->n);
+  h->seq_off.resize(h->n + 1);
+  h->itv_off.resize(h->n + 1);
+  h->cb_off.resize(h->n + 1);
+  h->ub_off.resize(h->n + 1);
 
   // --- pass A: per-record sizes (parallel) for pool offsets ---
   std::vector<int32_t> seq_len(n), itv_cnt(n), cb_len(n), ub_len(n);
@@ -257,22 +266,22 @@ static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
       ub_len[i] = l2;
     }
   });
-  h->seq_off[0] = h->itv_off[0] = h->cb_off[0] = h->ub_off[0] = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    h->seq_off[i + 1] = h->seq_off[i] + seq_len[i];
-    h->itv_off[i + 1] = h->itv_off[i] + itv_cnt[i];
-    h->cb_off[i + 1] = h->cb_off[i] + cb_len[i];
-    h->ub_off[i + 1] = h->ub_off[i] + ub_len[i];
+  for (int64_t i = 0, gi = base; i < n; ++i, ++gi) {
+    h->seq_off[gi + 1] = h->seq_off[gi] + seq_len[i];
+    h->itv_off[gi + 1] = h->itv_off[gi] + itv_cnt[i];
+    h->cb_off[gi + 1] = h->cb_off[gi] + cb_len[i];
+    h->ub_off[gi + 1] = h->ub_off[gi] + ub_len[i];
   }
-  h->seq_pool.resize((size_t)h->seq_off[n]);
-  h->itv_pool.resize((size_t)h->itv_off[n] * 2);
-  h->cb_pool.resize((size_t)h->cb_off[n]);
-  h->ub_pool.resize((size_t)h->ub_off[n]);
+  h->seq_pool.resize((size_t)h->seq_off[h->n]);
+  h->itv_pool.resize((size_t)h->itv_off[h->n] * 2);
+  h->cb_pool.resize((size_t)h->cb_off[h->n]);
+  h->ub_pool.resize((size_t)h->ub_off[h->n]);
 
   // --- pass B: full decode (parallel) ---
   parallel_chunks(n, n_threads, [&](int64_t lo, int64_t hi) {
     for (int64_t i = lo; i < hi; ++i) {
       const uint8_t* r = rec_ptr[i];
+      int64_t gi = base + i;
       int32_t bs;
       memcpy(&bs, r, 4);
       const uint8_t* body = r + 4;
@@ -281,14 +290,14 @@ static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
       memcpy(&refid, body, 4);
       memcpy(&p0, body + 4, 4);
       uint8_t l_read_name = body[8];
-      h->mapq[i] = body[9];
+      h->mapq[gi] = body[9];
       uint16_t n_cigar, flg;
       memcpy(&n_cigar, body + 12, 2);
       memcpy(&flg, body + 14, 2);
       memcpy(&l_seq, body + 16, 4);
-      h->tid[i] = refid;
-      h->pos[i] = p0;
-      h->flag[i] = flg;
+      h->tid[gi] = refid;
+      h->pos[gi] = p0;
+      h->flag[gi] = flg;
       const uint8_t* cig = body + 32 + l_read_name;
       const uint8_t* aux0 = cig + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
       const uint8_t* ops;
@@ -296,7 +305,7 @@ static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
       effective_cigar(cig, n_cigar, l_seq, aux0, bend, &ops, &n_ops);
       // ref_end + aligned intervals
       int32_t rp = p0;
-      int64_t iv = h->itv_off[i] * 2;
+      int64_t iv = h->itv_off[gi] * 2;
       bool open = false;
       int32_t ref_len = 0;
       for (int32_t c = 0; c < n_ops; ++c) {
@@ -323,10 +332,10 @@ static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
           ref_len += l;
         }
       }
-      h->ref_end[i] = ref_len > 0 ? p0 + ref_len : p0 + 1;
+      h->ref_end[gi] = ref_len > 0 ? p0 + ref_len : p0 + 1;
       // sequence decode
       const uint8_t* sq = cig + 4 * n_cigar;
-      uint8_t* out = h->seq_pool.data() + h->seq_off[i];
+      uint8_t* out = h->seq_pool.data() + h->seq_off[gi];
       for (int32_t s = 0; s < l_seq; ++s) {
         uint8_t b = sq[s >> 1];
         out[s] = (uint8_t)SEQ_NT16[(s & 1) ? (b & 0xF) : (b >> 4)];
@@ -336,475 +345,131 @@ static void decode_records(GioBam* h, const uint8_t* const* rec_ptr,
       const uint8_t *v1, *v2;
       int32_t l1, l2;
       scan_aux(aux, bend, cb_tag, "UB", &v1, &l1, &v2, &l2);
-      if (l1) memcpy(h->cb_pool.data() + h->cb_off[i], v1, (size_t)l1);
-      if (l2) memcpy(h->ub_pool.data() + h->ub_off[i], v2, (size_t)l2);
+      if (l1) memcpy(h->cb_pool.data() + h->cb_off[gi], v1, (size_t)l1);
+      if (l2) memcpy(h->ub_pool.data() + h->ub_off[gi], v2, (size_t)l2);
     }
   });
 }
 
-}  // namespace
+// Where a BGZF block's deflate data lies (from the block's first byte), how
+// long it is, and the block's ISIZE.
+struct SpanBlock {
+  size_t src, clen;
+  uint32_t isize;
+};
 
-extern "C" {
-
-GioBam* gio_bam_load(const char* path, const char* cb_tag, int n_threads) {
-  auto* h = new GioBam();
-  FILE* f = fopen(path, "rb");
-  if (!f) { h->error = "cannot open file"; return h; }
-  fseek(f, 0, SEEK_END);
-  long fsize = ftell(f);
-  fseek(f, 0, SEEK_SET);
-  std::vector<uint8_t> raw((size_t)fsize);
-  if (fread(raw.data(), 1, (size_t)fsize, f) != (size_t)fsize) {
-    fclose(f);
-    h->error = "short read";
-    return h;
-  }
-  fclose(f);
-
-  // --- pass 1: BGZF block boundaries ---
-  struct Block { size_t src_off, src_len, dst_off, dst_len; };
-  std::vector<Block> blocks;
-  size_t pos = 0, total = 0;
-  while (pos + 28 <= raw.size()) {
-    if (!(raw[pos] == 0x1f && raw[pos + 1] == 0x8b && raw[pos + 2] == 8 &&
-          (raw[pos + 3] & 4))) {
-      h->error = "not BGZF at offset " + std::to_string(pos);
-      return h;
+// The BGZF block at p, of which `avail` bytes are at hand: its BSIZE, with
+// its data in *b; 0 where the bytes are no BGZF block; -k where the block
+// needs k bytes at hand (k > avail) to be parsed.
+int64_t bgzf_block(const uint8_t* p, size_t avail, SpanBlock* b) {
+  if (avail < 18) return -18;
+  if (!(p[0] == 0x1f && p[1] == 0x8b && p[2] == 8 && (p[3] & 4))) return 0;
+  uint16_t xlen;
+  memcpy(&xlen, p + 10, 2);
+  if (avail < 12u + xlen) return -(12 + (int64_t)xlen);
+  const uint8_t* extra = p + 12;
+  uint32_t bsize = 0;
+  for (size_t xo = 0; xo + 4 <= xlen;) {
+    uint16_t slen;
+    memcpy(&slen, extra + xo + 2, 2);
+    if (extra[xo] == 'B' && extra[xo + 1] == 'C' && slen == 2 &&
+        xo + 6 <= xlen) {
+      uint16_t bs16;
+      memcpy(&bs16, extra + xo + 4, 2);
+      bsize = (uint32_t)bs16 + 1;
     }
-    uint16_t xlen;
-    memcpy(&xlen, raw.data() + pos + 10, 2);
-    size_t xoff = pos + 12, xend = xoff + xlen;
-    uint32_t bsize = 0;
-    while (xoff + 4 <= xend) {
-      uint16_t slen;
-      memcpy(&slen, raw.data() + xoff + 2, 2);
-      if (raw[xoff] == 'B' && raw[xoff + 1] == 'C' && slen == 2) {
-        uint16_t bs;
-        memcpy(&bs, raw.data() + xoff + 4, 2);
-        bsize = (uint32_t)bs + 1;
+    xo += 4 + slen;
+  }
+  if (bsize < 12u + xlen + 8u) return 0;
+  if (avail < bsize) return -(int64_t)bsize;
+  b->src = 12 + xlen;
+  b->clen = bsize - 12 - xlen - 8;
+  memcpy(&b->isize, p + bsize - 4, 4);
+  return bsize;
+}
+
+// The BAM header at the start of an inflated stream, of which `len` bytes
+// are at hand: its length, with its references in *refs; 0 where the
+// stream is no BAM; -k where the header needs k bytes at hand (k > len).
+int64_t bam_header(const uint8_t* p, size_t len, std::vector<RefInfo>* refs) {
+  if (len < 12) return -12;
+  if (memcmp(p, "BAM\x01", 4) != 0) return 0;
+  int32_t l_text;
+  memcpy(&l_text, p + 4, 4);
+  size_t off = 8 + (size_t)l_text;
+  if (len < off + 4) return -(int64_t)(off + 4);
+  int32_t n_ref;
+  memcpy(&n_ref, p + off, 4);
+  off += 4;
+  std::vector<RefInfo> out;
+  for (int32_t i = 0; i < n_ref; ++i) {
+    if (len < off + 4) return -(int64_t)(off + 4);
+    int32_t l_name;
+    memcpy(&l_name, p + off, 4);
+    size_t next = off + 8 + (size_t)l_name;
+    if (len < next) return -(int64_t)next;
+    int32_t l_ref;
+    memcpy(&l_ref, p + off + 4 + l_name, 4);
+    out.push_back({std::string((const char*)p + off + 4, (size_t)l_name - 1),
+                   l_ref});
+    off = next;
+  }
+  *refs = std::move(out);
+  return (int64_t)off;
+}
+
+// Indexes the whole records of buf[from, len) that start before `stop`:
+// appends each one's offset to *offs and returns the offset after the last.
+// Stops at a record that runs past len (returning its offset), or sets
+// *bad at a block_size that is not positive.
+size_t index_records(const uint8_t* buf, size_t from, size_t stop, size_t len,
+                     std::vector<size_t>* offs, bool* bad) {
+  size_t u = from;
+  while (u < stop && u + 4 <= len) {
+    int32_t bs;
+    memcpy(&bs, buf + u, 4);
+    if (bs <= 0) { *bad = true; break; }
+    if (u + 4 + (size_t)bs > len) break;
+    offs->push_back(u);
+    u += 4 + (size_t)bs;
+  }
+  return u;
+}
+
+// A BGZF block listed for the parallel inflate: clen bytes of deflate data
+// at offset src in the compressed bytes of `chunk`, inflated to dlen bytes
+// at offset dst of the output.
+struct Block {
+  int64_t chunk;
+  size_t src, clen, dst;
+  uint32_t dlen;
+};
+
+// Inflates every listed block, from srcs[chunk] into out, in equal ranges
+// of the list across the threads (blocks hold at most 64 KiB, so ranges of
+// equal work); false if one fails. *most: the most any one thread inflated.
+bool inflate_blocks(const std::vector<Block>& blocks,
+                    const uint8_t* const* srcs, uint8_t* out, int n_threads,
+                    int64_t* most) {
+  std::atomic<bool> good(true);
+  std::atomic<int64_t> top(0);
+  parallel_chunks((int64_t)blocks.size(), n_threads, [&](int64_t lo,
+                                                         int64_t hi) {
+    for (int64_t i = lo; i < hi; ++i) {
+      const Block& bl = blocks[i];
+      if (bl.dlen && !inflate_block(srcs[bl.chunk] + bl.src, bl.clen,
+                                    out + bl.dst, bl.dlen)) {
+        good = false;
+        return;
       }
-      xoff += 4 + slen;
     }
-    if (!bsize) { h->error = "missing BC subfield"; return h; }
-    uint32_t isize;
-    memcpy(&isize, raw.data() + pos + bsize - 4, 4);
-    blocks.push_back({xend, bsize - (xend - pos) - 8, total, isize});
-    total += isize;
-    pos += bsize;
-  }
-
-  // --- pass 2: parallel inflate ---
-  std::vector<uint8_t> data(total);
-  std::atomic<bool> ok(true);
-  parallel_chunks((int64_t)blocks.size(), n_threads, [&](int64_t lo, int64_t hi) {
-    for (int64_t b = lo; b < hi; ++b) {
-      const Block& bl = blocks[b];
-      if (bl.dst_len == 0) continue;
-      if (!inflate_block(raw.data() + bl.src_off, bl.src_len,
-                         data.data() + bl.dst_off, bl.dst_len))
-        ok = false;
+    int64_t seen = top.load();
+    while (hi - lo > seen && !top.compare_exchange_weak(seen, hi - lo)) {
     }
   });
-  if (!ok) { h->error = "BGZF inflate failure"; return h; }
-  raw.clear();
-  raw.shrink_to_fit();
-
-  // --- header ---
-  if (data.size() < 12 || memcmp(data.data(), "BAM\x01", 4) != 0) {
-    h->error = "not a BAM stream";
-    return h;
-  }
-  int32_t l_text;
-  memcpy(&l_text, data.data() + 4, 4);
-  size_t off = 8 + (size_t)l_text;
-  int32_t n_ref;
-  memcpy(&n_ref, data.data() + off, 4);
-  off += 4;
-  for (int32_t i = 0; i < n_ref; ++i) {
-    int32_t l_name;
-    memcpy(&l_name, data.data() + off, 4);
-    std::string name((const char*)data.data() + off + 4, (size_t)l_name - 1);
-    int32_t l_ref;
-    memcpy(&l_ref, data.data() + off + 4 + l_name, 4);
-    h->refs.push_back({name, l_ref});
-    off += 8 + l_name;
-  }
-
-  // --- pass 3: index record offsets ---
-  std::vector<size_t> rec_off;
-  {
-    size_t p = off;
-    while (p + 4 <= data.size()) {
-      int32_t bs;
-      memcpy(&bs, data.data() + p, 4);
-      if (bs <= 0 || p + 4 + (size_t)bs > data.size()) break;
-      rec_off.push_back(p);
-      p += 4 + (size_t)bs;
-    }
-  }
-  int64_t n = (int64_t)rec_off.size();
-  std::vector<const uint8_t*> rec_ptr(n);
-  for (int64_t i = 0; i < n; ++i) rec_ptr[i] = data.data() + rec_off[i];
-  decode_records(h, rec_ptr.data(), n, cb_tag, n_threads);
-  return h;
+  *most = top;
+  return good;
 }
-
-// Decode a RAW (non-BGZF) BAM byte stream from memory into the columnar
-// arrays — consumed by the native CRAM decoder (libcramio emits exactly
-// this layout), avoiding any temp-file round trip.
-GioBam* gio_bam_load_bytes(const uint8_t* data, int64_t len,
-                           const char* cb_tag, int n_threads) {
-  auto* h = new GioBam();
-  if (len < 12 || memcmp(data, "BAM\x01", 4) != 0) {
-    h->error = "not a BAM stream";
-    return h;
-  }
-  int32_t l_text;
-  memcpy(&l_text, data + 4, 4);
-  size_t off = 8 + (size_t)l_text;
-  int32_t n_ref;
-  memcpy(&n_ref, data + off, 4);
-  off += 4;
-  for (int32_t i = 0; i < n_ref; ++i) {
-    int32_t l_name;
-    memcpy(&l_name, data + off, 4);
-    std::string name((const char*)data + off + 4, (size_t)l_name - 1);
-    int32_t l_ref;
-    memcpy(&l_ref, data + off + 4 + l_name, 4);
-    h->refs.push_back({name, l_ref});
-    off += 8 + l_name;
-  }
-  std::vector<const uint8_t*> rec_ptr;
-  {
-    size_t p = off;
-    while (p + 4 <= (size_t)len) {
-      int32_t bs;
-      memcpy(&bs, data + p, 4);
-      if (bs <= 0 || p + 4 + (size_t)bs > (size_t)len) break;
-      rec_ptr.push_back(data + p);
-      p += 4 + (size_t)bs;
-    }
-  }
-  decode_records(h, rec_ptr.data(), (int64_t)rec_ptr.size(), cb_tag,
-                 n_threads);
-  return h;
-}
-
-// Streaming whole-file loader: identical output to gio_bam_load, but the
-// file is processed in bounded segments — read a batch of raw blocks,
-// inflate them in parallel, decode the complete records they contain into
-// the columnar arrays, carry partial-record bytes into the next segment,
-// release the segment. Peak memory is the columnar output plus ONE
-// segment, instead of raw file + fully-inflated stream + columns.
-GioBam* gio_bam_load_stream(const char* path, const char* cb_tag,
-                            int n_threads, int64_t segment_bytes) {
-  if (segment_bytes <= 0) segment_bytes = 256 << 20;
-  if (segment_bytes < (1 << 20)) segment_bytes = 1 << 20;  // >= max block
-  auto* h = new GioBam();
-  FILE* f = fopen(path, "rb");
-  if (!f) { h->error = "cannot open file"; return h; }
-
-  std::vector<uint8_t> raw(segment_bytes);
-  size_t raw_len = 0;    // valid bytes in raw
-  bool eof = false;
-  auto refill = [&]() {
-    if (eof) return;
-    size_t got = fread(raw.data() + raw_len, 1, raw.size() - raw_len, f);
-    raw_len += got;
-    if (got == 0) eof = true;
-  };
-  refill();
-
-  std::vector<uint8_t> data;   // inflated bytes carried across segments
-  size_t data_consumed = 0;    // bytes of `data` already decoded
-  bool header_done = false;
-  size_t expect_hdr = 12;      // grows as header fields arrive
-
-  // running columnar append state
-  std::vector<int32_t> seq_len, itv_cnt, cb_len, ub_len;
-  h->seq_off.push_back(0);
-  h->itv_off.push_back(0);
-  h->cb_off.push_back(0);
-  h->ub_off.push_back(0);
-
-  while (true) {
-    // --- inflate every complete block currently in raw ---
-    struct Blk { size_t src_off, src_len, dst_off, dst_len; };
-    std::vector<Blk> blocks;
-    size_t pos = 0;
-    size_t dst_base = data.size();
-    size_t add = 0;
-    while (pos + 28 <= raw_len) {
-      if (!(raw[pos] == 0x1f && raw[pos + 1] == 0x8b && raw[pos + 2] == 8 &&
-            (raw[pos + 3] & 4))) {
-        h->error = "not BGZF in stream";
-        fclose(f);
-        return h;
-      }
-      uint16_t xlen;
-      memcpy(&xlen, raw.data() + pos + 10, 2);
-      size_t xoff = pos + 12, xend = xoff + xlen;
-      if (xend > raw_len) break;
-      uint32_t bsize = 0;
-      while (xoff + 4 <= xend) {
-        uint16_t slen;
-        memcpy(&slen, raw.data() + xoff + 2, 2);
-        if (raw[xoff] == 'B' && raw[xoff + 1] == 'C' && slen == 2) {
-          uint16_t bs;
-          memcpy(&bs, raw.data() + xoff + 4, 2);
-          bsize = (uint32_t)bs + 1;
-        }
-        xoff += 4 + slen;
-      }
-      if (!bsize) { h->error = "missing BC subfield"; fclose(f); return h; }
-      if (pos + bsize > raw_len) break;  // incomplete block: next segment
-      uint32_t isize;
-      memcpy(&isize, raw.data() + pos + bsize - 4, 4);
-      blocks.push_back({xend, bsize - (xend - pos) - 8, dst_base + add, isize});
-      add += isize;
-      pos += bsize;
-    }
-    if (blocks.empty() && eof) break;
-    if (blocks.empty() && !eof) {
-      // block larger than remaining buffer space: compact + refill
-      if (pos == 0 && raw_len == raw.size()) {
-        h->error = "BGZF block larger than segment";
-        fclose(f);
-        return h;
-      }
-      memmove(raw.data(), raw.data() + pos, raw_len - pos);
-      raw_len -= pos;
-      refill();
-      continue;
-    }
-    data.resize(dst_base + add);
-    std::atomic<bool> ok(true);
-    parallel_chunks((int64_t)blocks.size(), n_threads,
-                    [&](int64_t lo, int64_t hi) {
-      for (int64_t b = lo; b < hi; ++b) {
-        const Blk& bl = blocks[b];
-        if (bl.dst_len == 0) continue;
-        if (!inflate_block(raw.data() + bl.src_off, bl.src_len,
-                           data.data() + bl.dst_off, bl.dst_len))
-          ok = false;
-      }
-    });
-    if (!ok) { h->error = "BGZF inflate failure"; fclose(f); return h; }
-    // slide leftover raw bytes to the front, refill for next round
-    memmove(raw.data(), raw.data() + pos, raw_len - pos);
-    raw_len -= pos;
-    refill();
-
-    // --- header (first segment(s)) ---
-    if (!header_done) {
-      if (data.size() < expect_hdr) continue;
-      if (memcmp(data.data(), "BAM\x01", 4) != 0) {
-        h->error = "not a BAM stream";
-        fclose(f);
-        return h;
-      }
-      int32_t l_text;
-      memcpy(&l_text, data.data() + 4, 4);
-      size_t off = 8 + (size_t)l_text;
-      if (data.size() < off + 4) { expect_hdr = off + 4; continue; }
-      int32_t n_ref;
-      memcpy(&n_ref, data.data() + off, 4);
-      off += 4;
-      bool complete = true;
-      std::vector<RefInfo> refs;
-      for (int32_t i = 0; i < n_ref; ++i) {
-        if (data.size() < off + 4) { expect_hdr = off + 4; complete = false; break; }
-        int32_t l_name;
-        memcpy(&l_name, data.data() + off, 4);
-        if (data.size() < off + 8 + (size_t)l_name) {
-          expect_hdr = off + 8 + (size_t)l_name;
-          complete = false;
-          break;
-        }
-        std::string name((const char*)data.data() + off + 4, (size_t)l_name - 1);
-        int32_t l_ref;
-        memcpy(&l_ref, data.data() + off + 4 + l_name, 4);
-        refs.push_back({name, l_ref});
-        off += 8 + l_name;
-      }
-      if (!complete) continue;
-      h->refs = std::move(refs);
-      data_consumed = off;
-      header_done = true;
-    }
-
-    // --- index complete records in [data_consumed, data.size()) ---
-    std::vector<size_t> rec_off;
-    {
-      size_t p = data_consumed;
-      while (p + 4 <= data.size()) {
-        int32_t bs;
-        memcpy(&bs, data.data() + p, 4);
-        if (bs <= 0) { h->error = "corrupt record size"; fclose(f); return h; }
-        if (p + 4 + (size_t)bs > data.size()) break;
-        rec_off.push_back(p);
-        p += 4 + (size_t)bs;
-      }
-      data_consumed = p;
-    }
-    int64_t base = h->n;
-    int64_t n_new = (int64_t)rec_off.size();
-    if (n_new) {
-      // sizes pass for this batch
-      seq_len.resize(n_new);
-      itv_cnt.resize(n_new);
-      cb_len.resize(n_new);
-      ub_len.resize(n_new);
-      parallel_chunks(n_new, n_threads, [&](int64_t lo, int64_t hi) {
-        for (int64_t i = lo; i < hi; ++i) {
-          const uint8_t* r = data.data() + rec_off[i];
-          int32_t bs;
-          memcpy(&bs, r, 4);
-          const uint8_t* body = r + 4;
-          const uint8_t* bend = body + bs;
-          int32_t l_seq;
-          uint8_t l_read_name = body[8];
-          uint16_t n_cigar;
-          memcpy(&n_cigar, body + 12, 2);
-          memcpy(&l_seq, body + 16, 4);
-          seq_len[i] = l_seq;
-          const uint8_t* cig = body + 32 + l_read_name;
-          const uint8_t* aux = cig + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
-          const uint8_t* ops;
-          int32_t n_ops;
-          effective_cigar(cig, n_cigar, l_seq, aux, bend, &ops, &n_ops);
-          int cnt = 0;
-          bool open = false;
-          for (int32_t c = 0; c < n_ops; ++c) {
-            uint32_t v;
-            memcpy(&v, ops + 4 * c, 4);
-            uint32_t op = v & 0xF;
-            if (op == 0 || op == 7 || op == 8 || op == 2) {
-              if (!open) { ++cnt; open = true; }
-            } else if (op == 3) {
-              open = false;
-            }
-          }
-          itv_cnt[i] = cnt;
-          const uint8_t *v1, *v2;
-          int32_t l1, l2;
-          scan_aux(aux, bend, cb_tag, "UB", &v1, &l1, &v2, &l2);
-          cb_len[i] = l1;
-          ub_len[i] = l2;
-        }
-      });
-      h->n += n_new;
-      h->tid.resize(h->n);
-      h->pos.resize(h->n);
-      h->ref_end.resize(h->n);
-      h->mapq.resize(h->n);
-      h->flag.resize(h->n);
-      h->seq_off.resize(h->n + 1);
-      h->itv_off.resize(h->n + 1);
-      h->cb_off.resize(h->n + 1);
-      h->ub_off.resize(h->n + 1);
-      for (int64_t i = 0; i < n_new; ++i) {
-        h->seq_off[base + i + 1] = h->seq_off[base + i] + seq_len[i];
-        h->itv_off[base + i + 1] = h->itv_off[base + i] + itv_cnt[i];
-        h->cb_off[base + i + 1] = h->cb_off[base + i] + cb_len[i];
-        h->ub_off[base + i + 1] = h->ub_off[base + i] + ub_len[i];
-      }
-      h->seq_pool.resize((size_t)h->seq_off[h->n]);
-      h->itv_pool.resize((size_t)h->itv_off[h->n] * 2);
-      h->cb_pool.resize((size_t)h->cb_off[h->n]);
-      h->ub_pool.resize((size_t)h->ub_off[h->n]);
-      parallel_chunks(n_new, n_threads, [&](int64_t lo, int64_t hi) {
-        for (int64_t i = lo; i < hi; ++i) {
-          const uint8_t* r = data.data() + rec_off[i];
-          int64_t gi = base + i;
-          int32_t bs;
-          memcpy(&bs, r, 4);
-          const uint8_t* body = r + 4;
-          const uint8_t* bend = body + bs;
-          int32_t refid, p0, l_seq;
-          memcpy(&refid, body, 4);
-          memcpy(&p0, body + 4, 4);
-          uint8_t l_read_name = body[8];
-          h->mapq[gi] = body[9];
-          uint16_t n_cigar, flg;
-          memcpy(&n_cigar, body + 12, 2);
-          memcpy(&flg, body + 14, 2);
-          memcpy(&l_seq, body + 16, 4);
-          h->tid[gi] = refid;
-          h->pos[gi] = p0;
-          h->flag[gi] = flg;
-          const uint8_t* cig = body + 32 + l_read_name;
-          const uint8_t* aux0 = cig + 4 * n_cigar + (l_seq + 1) / 2 + l_seq;
-          const uint8_t* ops;
-          int32_t n_ops;
-          effective_cigar(cig, n_cigar, l_seq, aux0, bend, &ops, &n_ops);
-          int32_t rp = p0;
-          int64_t iv = h->itv_off[gi] * 2;
-          bool open = false;
-          int32_t ref_len = 0;
-          for (int32_t c = 0; c < n_ops; ++c) {
-            uint32_t v;
-            memcpy(&v, ops + 4 * c, 4);
-            uint32_t op = v & 0xF;
-            int32_t l = (int32_t)(v >> 4);
-            bool consumes_ref = (op == 0 || op == 2 || op == 3 || op == 7 || op == 8);
-            bool aligned = (op == 0 || op == 2 || op == 7 || op == 8);
-            if (aligned) {
-              if (!open) {
-                h->itv_pool[iv] = rp;
-                h->itv_pool[iv + 1] = rp + l;
-                open = true;
-              } else {
-                h->itv_pool[iv + 1] = rp + l;
-              }
-            } else if (op == 3 && open) {
-              iv += 2;
-              open = false;
-            }
-            if (consumes_ref) {
-              rp += l;
-              ref_len += l;
-            }
-          }
-          h->ref_end[gi] = ref_len > 0 ? p0 + ref_len : p0 + 1;
-          const uint8_t* sq = cig + 4 * n_cigar;
-          uint8_t* out = h->seq_pool.data() + h->seq_off[gi];
-          for (int32_t s = 0; s < l_seq; ++s) {
-            uint8_t b = sq[s >> 1];
-            out[s] = (uint8_t)SEQ_NT16[(s & 1) ? (b & 0xF) : (b >> 4)];
-          }
-          const uint8_t* aux = sq + (l_seq + 1) / 2 + l_seq;
-          const uint8_t *v1, *v2;
-          int32_t l1, l2;
-          scan_aux(aux, bend, cb_tag, "UB", &v1, &l1, &v2, &l2);
-          if (l1) memcpy(h->cb_pool.data() + h->cb_off[gi], v1, (size_t)l1);
-          if (l2) memcpy(h->ub_pool.data() + h->ub_off[gi], v2, (size_t)l2);
-        }
-      });
-    }
-    // drop decoded bytes; carry the partial tail into the next round
-    if (data_consumed) {
-      data.erase(data.begin(), data.begin() + (ptrdiff_t)data_consumed);
-      data_consumed = 0;
-    }
-    if (eof && raw_len < 28) break;
-  }
-  fclose(f);
-  if (!header_done) {
-    if (h->error.empty()) h->error = "truncated header";
-    return h;
-  }
-  // seq_off was seeded with a single 0 before n was known; the resizes
-  // above maintain the invariant len == n + 1
-  h->seq_pool.shrink_to_fit();
-  return h;
-}
-
-}  // extern "C"
-
-// ---- Region loader ------------------------------------------------------
-
-namespace {
 
 // pread exactly len bytes at off; false on a short read or an error
 bool pread_full(int fd, uint8_t* dst, size_t len, int64_t off) {
@@ -834,132 +499,99 @@ struct RawSpan {
   }
 };
 
-// A BGZF block in a RawSpan: where its deflate data lies in the span's
-// bytes, how long it is, and the block's ISIZE.
-struct SpanBlock {
-  size_t src, clen;
-  uint32_t isize;
-};
-
 // The BGZF block at file offset `off` (>= s.base), read into s as far as
-// its end; returns its BSIZE, or 0 where the bytes are no BGZF block.
+// its end; returns its BSIZE, with b->src an offset into s.bytes, or 0
+// where the bytes are no BGZF block.
 uint32_t span_block(RawSpan& s, int64_t off, SpanBlock* b) {
-  if (!s.reach(off + 18)) return 0;
-  size_t at = (size_t)(off - s.base);
-  const uint8_t* head = s.bytes.data() + at;
-  if (!(head[0] == 0x1f && head[1] == 0x8b && head[2] == 8 && (head[3] & 4)))
-    return 0;
-  uint16_t xlen;
-  memcpy(&xlen, head + 10, 2);
-  if (!s.reach(off + 12 + xlen)) return 0;
-  const uint8_t* extra = s.bytes.data() + at + 12;
-  uint32_t bsize = 0;
-  for (size_t xo = 0; xo + 4 <= xlen;) {
-    uint16_t slen;
-    memcpy(&slen, extra + xo + 2, 2);
-    if (extra[xo] == 'B' && extra[xo + 1] == 'C' && slen == 2 &&
-        xo + 6 <= xlen) {
-      uint16_t bs16;
-      memcpy(&bs16, extra + xo + 4, 2);
-      bsize = (uint32_t)bs16 + 1;
+  for (int64_t need = 18;;) {
+    if (!s.reach(off + need)) return 0;
+    size_t at = (size_t)(off - s.base);
+    int64_t bsize = bgzf_block(s.bytes.data() + at, s.bytes.size() - at, b);
+    if (bsize >= 0) {
+      b->src += at;
+      return (uint32_t)bsize;
     }
-    xo += 4 + slen;
+    need = -bsize;
   }
-  if (bsize < 12u + xlen + 8u || !s.reach(off + bsize)) return 0;
-  b->src = at + 12 + xlen;
-  b->clen = bsize - 12 - xlen - 8;
-  memcpy(&b->isize, s.bytes.data() + at + bsize - 4, 4);
-  return bsize;
 }
 
-}  // namespace
+// one BGZF block at file offset `off` -> append payload to out; returns
+// its compressed size (0 on EOF/corrupt, out then as it was)
+int64_t inflate_at(int fd, int64_t off, std::vector<uint8_t>& out) {
+  RawSpan s{fd, off, {}};
+  SpanBlock b;
+  uint32_t bsize = span_block(s, off, &b);
+  if (!bsize) return 0;
+  size_t base = out.size();
+  out.resize(base + b.isize);
+  if (b.isize && !inflate_block(s.bytes.data() + b.src, b.clen,
+                                out.data() + base, b.isize)) {
+    out.resize(base);
+    return 0;
+  }
+  return (int64_t)bsize;
+}
 
-extern "C" {
-
-// Region loader: decode ONLY the BGZF blocks the given index chunks touch
-// (the htslib fetch model the reference uses per variant, reference
-// src/main.rs:822-826, lifted to a batched plan). chunks = n_chunks (vbeg,
-// vend) virtual-offset pairs, sorted and non-overlapping (the Python side
-// merges them from BAI/CSI region queries). Peak memory is the plan's
-// compressed and inflated bytes + decoded columns — independent of file
-// size.
+// The region loader, and with n_chunks < 0 the whole-file loader: decode
+// ONLY the BGZF blocks the given index chunks touch (the htslib fetch model
+// the reference uses per variant, reference src/main.rs:822-826, lifted to
+// a batched plan). chunks = n_chunks (vbeg, vend) virtual-offset pairs,
+// sorted and non-overlapping (the Python side merges them from BAI/CSI
+// region queries). Peak memory is the plan's compressed and inflated bytes
+// + decoded columns — independent of file size.
 //
-// Three passes, so that the inflate spreads over the threads whatever the
-// plan's shape (one merged chunk as well as hundreds):
+// After the header, three passes, so that the inflate spreads over the
+// threads whatever the plan's shape (one merged chunk as well as hundreds):
 //   (a) serially, each chunk's compressed span is read once and its BGZF
 //       blocks listed from their headers in memory, each with its place in
 //       one output buffer of the exact total size (a prefix sum of ISIZEs);
-//   (b) the blocks of all chunks are inflated in parallel, in equal index
-//       ranges (blocks hold at most 64 KiB, so ranges of equal work);
+//   (b) the blocks of all chunks are inflated in parallel (inflate_blocks);
 //   (c) each chunk's records are indexed, in parallel by chunk.
 // Adjacent chunks that share a boundary block each inflate their own copy.
-GioBam* gio_bam_load_regions(const char* path, const char* cb_tag,
-                             int n_threads, const int64_t* chunks,
-                             int64_t n_chunks) {
+GioBam* load_plan(const char* path, const char* cb_tag, int n_threads,
+                  const int64_t* chunks, int64_t n_chunks) {
   auto* h = new GioBam();
   FILE* f = fopen(path, "rb");
   if (!f) { h->error = "cannot open file"; return h; }
   int fd = fileno(f);
   int64_t fsize = (int64_t)lseek(fd, 0, SEEK_END);
 
-  // one BGZF block at file offset `off` -> append payload to out;
-  // returns compressed size (0 on EOF/corrupt)
-  auto inflate_at = [&](int64_t off, std::vector<uint8_t>& out) -> int64_t {
-    RawSpan s{fd, off, {}};
-    SpanBlock b;
-    uint32_t bsize = span_block(s, off, &b);
-    if (!bsize) return 0;
-    size_t base = out.size();
-    out.resize(base + b.isize);
-    if (b.isize && !inflate_block(s.bytes.data() + b.src, b.clen,
-                                  out.data() + base, b.isize))
-      return 0;
-    return (int64_t)bsize;
-  };
-
-  // --- header: inflate leading blocks until the header region parses ---
-  {
-    std::vector<uint8_t> hdr;
-    int64_t off = 0;
-    auto need = [&](size_t want) -> bool {
-      while (hdr.size() < want) {
-        int64_t bs = inflate_at(off, hdr);
-        if (bs <= 0) return false;
-        off += bs;
-      }
-      return true;
-    };
-    if (!need(12) || memcmp(hdr.data(), "BAM\x01", 4) != 0) {
+  // --- header: inflate leading blocks until it parses, at least doubling
+  // the bytes at hand each time (a header of many blocks parses a few
+  // times, not once a block) ---
+  std::vector<uint8_t> hdr;
+  std::vector<std::pair<int64_t, size_t>> lead;  // block offset, end in hdr
+  int64_t hl, next = 0;
+  while ((hl = bam_header(hdr.data(), hdr.size(), &h->refs)) < 0) {
+    size_t want = std::max((size_t)-hl, 2 * hdr.size());
+    while (hdr.size() < want) {
+      int64_t bs = inflate_at(fd, next, hdr);
+      if (bs <= 0) break;
+      lead.push_back({next, hdr.size()});
+      next += bs;
+    }
+    if (hdr.size() < (size_t)-hl) {
       fclose(f);
-      h->error = "not a BAM stream";
+      h->error = hdr.size() < 12 ? "not a BAM stream" : "truncated header";
       return h;
     }
-    int32_t l_text;
-    memcpy(&l_text, hdr.data() + 4, 4);
-    if (!need(8 + (size_t)l_text + 4)) { fclose(f); h->error = "truncated header"; return h; }
-    size_t o = 8 + (size_t)l_text;
-    int32_t n_ref;
-    memcpy(&n_ref, hdr.data() + o, 4);
-    o += 4;
-    for (int32_t i = 0; i < n_ref; ++i) {
-      if (!need(o + 4)) { fclose(f); h->error = "truncated header"; return h; }
-      int32_t l_name;
-      memcpy(&l_name, hdr.data() + o, 4);
-      if (!need(o + 8 + (size_t)l_name)) { fclose(f); h->error = "truncated header"; return h; }
-      std::string name((const char*)hdr.data() + o + 4, (size_t)l_name - 1);
-      int32_t l_ref;
-      memcpy(&l_ref, hdr.data() + o + 4 + l_name, 4);
-      h->refs.push_back({name, l_ref});
-      o += 8 + l_name;
-    }
+  }
+  if (hl == 0) { fclose(f); h->error = "not a BAM stream"; return h; }
+  int64_t whole[2];
+  if (n_chunks < 0) {
+    // one chunk from the header's end (in the first block that ends past
+    // it, or at the next block) to the end of the file
+    size_t k = 0;
+    while (k < lead.size() && lead[k].second <= (size_t)hl) ++k;
+    size_t start = k ? lead[k - 1].second : 0;
+    whole[0] = k < lead.size() ? lead[k].first << 16 | (int64_t)(hl - start)
+                               : next << 16;
+    whole[1] = std::max<int64_t>(fsize, 0) << 16;
+    chunks = whole;
+    n_chunks = 1;
   }
 
   // --- (a) serially: list each chunk's blocks from its compressed span ---
-  struct Block {
-    int64_t chunk;
-    size_t src, clen, dst;
-    uint32_t dlen;
-  };
   struct Chunk {
     size_t dst, len;   // its inflated bytes in the output buffer
     size_t beg, end;   // its records' local span: [vbeg & 0xFFFF, vend)
@@ -1005,23 +637,12 @@ GioBam* gio_bam_load_regions(const char* path, const char* cb_tag,
   // --- (b) in parallel: inflate every listed block ---
   std::unique_ptr<uint8_t[]> data(
       ok ? new (std::nothrow) uint8_t[total ? total : 1] : nullptr);
-  std::atomic<bool> good(data != nullptr);
-  std::atomic<int64_t> most(0);
-  if (good)
-    parallel_chunks((int64_t)blocks.size(), n_threads, [&](int64_t lo,
-                                                           int64_t hi) {
-      for (int64_t i = lo; i < hi; ++i) {
-        const Block& bl = blocks[i];
-        if (bl.dlen && !inflate_block(raw[bl.chunk].bytes.data() + bl.src,
-                                      bl.clen, data.get() + bl.dst, bl.dlen)) {
-          good = false;
-          return;
-        }
-      }
-      int64_t seen = most.load();
-      while (hi - lo > seen && !most.compare_exchange_weak(seen, hi - lo)) {
-      }
-    });
+  std::vector<const uint8_t*> srcs;
+  for (const RawSpan& s : raw) srcs.push_back(s.bytes.data());
+  int64_t most = 0;
+  std::atomic<bool> good(data != nullptr &&
+                         inflate_blocks(blocks, srcs.data(), data.get(),
+                                        n_threads, &most));
   raw.clear();
   raw.shrink_to_fit();
 
@@ -1046,25 +667,18 @@ GioBam* gio_bam_load_regions(const char* path, const char* cb_tag,
             ext.assign(base, base + len);
             copied = true;
           }
-          int64_t bs = inflate_at(cur, ext);
+          int64_t bs = inflate_at(fd, cur, ext);
           if (bs <= 0) return false;
           cur += bs;
           base = ext.data();
           len = ext.size();
           return true;
         };
-        std::vector<size_t>& ro = rec_off[ci];
-        size_t u = ck.beg;
-        while (u < ck.end) {
-          while (u + 4 > len)
-            if (!more()) { good = false; return; }
-          int32_t bs32;
-          memcpy(&bs32, base + u, 4);
-          if (bs32 <= 0) { good = false; return; }
-          while (u + 4 + (size_t)bs32 > len)
-            if (!more()) { good = false; return; }
-          ro.push_back(u);
-          u += 4 + (size_t)bs32;
+        bool bad = false;
+        for (size_t u = ck.beg;;) {
+          u = index_records(base, u, ck.end, len, &rec_off[ci], &bad);
+          if (bad || (u < ck.end && !more())) { good = false; return; }
+          if (u >= ck.end) break;
         }
         rec_base[ci] = base;
       }
@@ -1081,6 +695,134 @@ GioBam* gio_bam_load_regions(const char* path, const char* cb_tag,
   for (int64_t ci = 0; ci < n_chunks; ++ci)
     for (size_t off : rec_off[ci]) rec_ptr.push_back(rec_base[ci] + off);
   decode_records(h, rec_ptr.data(), n, cb_tag, n_threads);
+  return h;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The whole file: the region loader's passes over one chunk.
+GioBam* gio_bam_load(const char* path, const char* cb_tag, int n_threads) {
+  return load_plan(path, cb_tag, n_threads, nullptr, -1);
+}
+
+GioBam* gio_bam_load_regions(const char* path, const char* cb_tag,
+                             int n_threads, const int64_t* chunks,
+                             int64_t n_chunks) {
+  return load_plan(path, cb_tag, n_threads, chunks, n_chunks);
+}
+
+// Decode a RAW (non-BGZF) BAM byte stream from memory into the columnar
+// arrays — consumed by the native CRAM decoder (libcramio emits exactly
+// this layout), avoiding any temp-file round trip. The records end at the
+// first that is malformed or cut short.
+GioBam* gio_bam_load_bytes(const uint8_t* data, int64_t len,
+                           const char* cb_tag, int n_threads) {
+  auto* h = new GioBam();
+  int64_t hl = bam_header(data, (size_t)len, &h->refs);
+  if (hl <= 0) {
+    h->error = hl == 0 || len < 12 ? "not a BAM stream" : "truncated header";
+    return h;
+  }
+  std::vector<size_t> offs;
+  bool bad = false;
+  index_records(data, (size_t)hl, (size_t)len, (size_t)len, &offs, &bad);
+  std::vector<const uint8_t*> rec_ptr;
+  rec_ptr.reserve(offs.size());
+  for (size_t off : offs) rec_ptr.push_back(data + off);
+  decode_records(h, rec_ptr.data(), (int64_t)rec_ptr.size(), cb_tag,
+                 n_threads);
+  return h;
+}
+
+// Streaming whole-file loader: identical output to gio_bam_load, but the
+// file is processed in bounded segments — read a batch of raw blocks,
+// inflate them in parallel, decode the complete records they contain into
+// the columnar arrays, carry partial-record bytes into the next segment,
+// release the segment. Peak memory is the columnar output plus ONE
+// segment, instead of raw file + fully-inflated stream + columns.
+GioBam* gio_bam_load_stream(const char* path, const char* cb_tag,
+                            int n_threads, int64_t segment_bytes) {
+  if (segment_bytes <= 0) segment_bytes = 256 << 20;
+  if (segment_bytes < (1 << 20)) segment_bytes = 1 << 20;  // >= max block
+  auto* h = new GioBam();
+  FILE* f = fopen(path, "rb");
+  if (!f) { h->error = "cannot open file"; return h; }
+  auto fail = [&](const char* error) {
+    h->error = error;
+    fclose(f);
+    return h;
+  };
+
+  std::vector<uint8_t> raw(segment_bytes);
+  size_t raw_len = 0;    // valid bytes in raw
+  bool eof = false;
+  auto refill = [&]() {
+    if (eof) return;
+    size_t got = fread(raw.data() + raw_len, 1, raw.size() - raw_len, f);
+    raw_len += got;
+    if (got == 0) eof = true;
+  };
+  refill();
+
+  std::vector<uint8_t> data;   // inflated bytes carried across segments
+  bool header_done = false;
+  while (true) {
+    // --- inflate every complete block currently in raw ---
+    std::vector<Block> blocks;
+    size_t pos = 0, end = data.size();
+    SpanBlock b;
+    int64_t bsize;
+    while ((bsize = bgzf_block(raw.data() + pos, raw_len - pos, &b)) > 0) {
+      blocks.push_back({0, pos + b.src, b.clen, end, b.isize});
+      end += b.isize;
+      pos += (size_t)bsize;
+    }
+    if (bsize == 0) return fail("not BGZF in stream");
+    if (blocks.empty()) {
+      if (eof) break;
+      // an incomplete block: read on, unless it fills the whole segment
+      if (raw_len == raw.size()) return fail("BGZF block larger than segment");
+      refill();
+      continue;
+    }
+    data.resize(end);
+    const uint8_t* src = raw.data();
+    int64_t most;
+    if (!inflate_blocks(blocks, &src, data.data(), n_threads, &most))
+      return fail("BGZF inflate failure");
+    // slide leftover raw bytes to the front, refill for next round
+    memmove(raw.data(), raw.data() + pos, raw_len - pos);
+    raw_len -= pos;
+    refill();
+
+    // --- header (first segment(s)) ---
+    size_t from = 0;
+    if (!header_done) {
+      int64_t hl = bam_header(data.data(), data.size(), &h->refs);
+      if (hl == 0) return fail("not a BAM stream");
+      if (hl < 0) continue;
+      header_done = true;
+      from = (size_t)hl;
+    }
+
+    // --- decode the complete records; carry the partial tail over ---
+    std::vector<size_t> offs;
+    bool bad = false;
+    size_t done = index_records(data.data(), from, data.size(), data.size(),
+                                &offs, &bad);
+    if (bad) return fail("corrupt record size");
+    std::vector<const uint8_t*> rec_ptr;
+    rec_ptr.reserve(offs.size());
+    for (size_t off : offs) rec_ptr.push_back(data.data() + off);
+    decode_records(h, rec_ptr.data(), (int64_t)rec_ptr.size(), cb_tag,
+                   n_threads);
+    data.erase(data.begin(), data.begin() + (ptrdiff_t)done);
+  }
+  fclose(f);
+  if (!header_done) h->error = "truncated header";
+  h->seq_pool.shrink_to_fit();
   return h;
 }
 
@@ -1280,7 +1022,7 @@ void gio_tag_ids(const uint8_t* pool, const int64_t* off, int64_t n,
   }
 }
 
-// ---- Matrix Market body formatting / parsing ----------------------------
+// ---- Matrix Market body formatting ---------------------------------------
 //
 // The reference writes matrices through sprs' write_matrix_market
 // (reference src/main.rs:381-389): one "row col value" line per
@@ -1288,7 +1030,7 @@ void gio_tag_ids(const uint8_t* pool, const int64_t* off, int64_t n,
 // positional notation, integral values bare, NaN as "NaN").
 // std::to_chars with chars_format::fixed produces exactly that shortest
 // positional form; integral values take the integer fast path. Lines are
-// formatted/parsed in parallel chunks — this is the scalability story for
+// formatted in parallel chunks — this is the scalability story for
 // cohort-scale (100M-nnz) matrices that a Python formatter can't provide.
 
 struct GioBuf {
@@ -1410,83 +1152,6 @@ GioBuf* gio_mtx_format(const int64_t* rows, const int64_t* cols,
 const char* gio_buf_data(GioBuf* b) { return b->data.data(); }
 int64_t gio_buf_len(GioBuf* b) { return (int64_t)b->data.size(); }
 void gio_buf_free(GioBuf* b) { delete b; }
-
-// Parse up to n "row col value" lines from buf (indices emitted 1-based,
-// exactly as stored). Returns the number of lines parsed, or
-// -1 = malformed number, -2 = non-integer row/col index.
-int64_t gio_mtx_parse(const char* buf, int64_t len, int64_t n,
-                      int64_t* rows, int64_t* cols, double* vals,
-                      int n_threads) {
-  if (n == 0) return 0;
-  // pass 1: chunk the buffer at line boundaries, count lines per chunk
-  int nchunks = std::max(1, std::min<int>(n_threads * 4, 256));
-  std::vector<int64_t> c_beg(nchunks + 1, len);
-  c_beg[0] = 0;
-  for (int c = 1; c < nchunks; ++c) {
-    int64_t p = len * c / nchunks;
-    if (p < c_beg[c - 1]) p = c_beg[c - 1];
-    while (p < len && buf[p] != '\n') ++p;
-    c_beg[c] = p < len ? p + 1 : len;
-  }
-  std::vector<int64_t> c_lines(nchunks, 0);
-  parallel_chunks(nchunks, n_threads, [&](int64_t clo, int64_t chi) {
-    for (int64_t c = clo; c < chi; ++c) {
-      int64_t cnt = 0;
-      const char* p = buf + c_beg[c];
-      const char* end = buf + c_beg[c + 1];
-      bool in_line = false;
-      while (p < end) {
-        if (*p == '\n') { in_line = false; }
-        else if (!in_line && *p != '\r') { in_line = true; ++cnt; }
-        ++p;
-      }
-      c_lines[c] = cnt;
-    }
-  });
-  std::vector<int64_t> c_first(nchunks + 1, 0);
-  for (int c = 0; c < nchunks; ++c) c_first[c + 1] = c_first[c] + c_lines[c];
-  std::atomic<int64_t> err(0);
-  parallel_chunks(nchunks, n_threads, [&](int64_t clo, int64_t chi) {
-    for (int64_t c = clo; c < chi; ++c) {
-      int64_t li = c_first[c];
-      const char* p = buf + c_beg[c];
-      const char* end = buf + c_beg[c + 1];
-      while (p < end && li < n) {
-        while (p < end && (*p == '\n' || *p == '\r')) ++p;
-        if (p >= end) break;
-        const char* eol = (const char*)memchr(p, '\n', (size_t)(end - p));
-        if (!eol) eol = end;
-        auto skip_ws = [&] { while (p < eol && (*p == ' ' || *p == '\t' || *p == '\r')) ++p; };
-        int64_t iv[2];
-        bool bad = false;
-        for (int t = 0; t < 2 && !bad; ++t) {
-          skip_ws();
-          auto r = std::from_chars(p, eol, iv[t]);
-          if (r.ec != std::errc()) { err = -1; bad = true; break; }
-          if (r.ptr < eol && *r.ptr != ' ' && *r.ptr != '\t' && *r.ptr != '\r') {
-            err = -2;  // "1.5" / "1e3": index token isn't a bare integer
-            bad = true;
-            break;
-          }
-          p = r.ptr;
-        }
-        if (bad) return;
-        skip_ws();
-        double dv;
-        auto r = std::from_chars(p, eol, dv);
-        if (r.ec != std::errc()) { err = -1; return; }
-        rows[li] = iv[0];
-        cols[li] = iv[1];
-        vals[li] = dv;
-        ++li;
-        p = eol;
-      }
-    }
-  });
-  if (err != 0) return err;
-  int64_t total = std::min<int64_t>(n, c_first[nchunks]);
-  return total;
-}
 
 const char* gio_bam_error(GioBam* h) {
   return h->error.empty() ? nullptr : h->error.c_str();

@@ -1,14 +1,17 @@
-"""ctypes wrappers for libgenomio (csrc/genomio.cpp, the port's copy of
-native/genomio.cpp): parallel BAM decode
-into columnar NumPy arrays (the whole file, only the chunks of an indexed
-region plan, or an in-memory BAM stream), padded sequence gathers for the
+"""ctypes wrappers for libgenomio (csrc/genomio.cpp): parallel BAM decode
+into columnar NumPy arrays (only the chunks of an indexed region plan, the
+whole file, or an in-memory BAM stream), padded sequence gathers for the
 scoring batches, and Matrix Market body formatting; and for libcramio
 (native/cramio.cpp), which decodes a CRAM into such a stream.
 
 One call decodes BGZF and all records into structure-of-arrays buffers
 (positions, flags, decoded sequences, aligned-reference intervals, CB/UB
-tag values) that the vectorized pipeline consumes. The library is built
-from the checkout's source at first use (ops/_build.py).
+tag values) that the vectorized pipeline consumes. Its four loaders share
+one set of passes: BGZF blocks listed serially and inflated in parallel,
+records indexed by their sizes, then decoded in parallel. The whole-file
+loader is the region loader over one chunk, from the first record to the
+end of the file. The library is built from the checkout's source at first
+use (ops/_build.py).
 """
 
 from __future__ import annotations
@@ -274,10 +277,12 @@ class ColumnarBam:
     uint8 array: cram_decode_native's output), that stream, `path` then
     only naming the input in errors. `loader` names the decode taken:
     "bytes", "regions", "bounded" (the bounded-memory whole-file loader,
-    from STREAM_DECODE_BYTES) or "whole". The region loader inflates the
-    BGZF blocks of all the plan's chunks across the threads: `blocks` is
-    how many it inflated and `blocks_thread_max` the most any one thread
-    inflated (both 0 for the other loaders)."""
+    from STREAM_DECODE_BYTES, which runs the same passes segment by
+    segment) or "whole" (the region loader's passes over one chunk from the
+    first record to the end of the file). Those two inflate the BGZF blocks
+    of all their chunks across the threads: `blocks` is how many they
+    inflated and `blocks_thread_max` the most any one thread inflated (both
+    0 for the bounded and bytes loaders)."""
 
     def __init__(self, path: str, cb_tag: bytes = b"CB", n_threads: int = 0,
                  chunks=None, bam_bytes=None):

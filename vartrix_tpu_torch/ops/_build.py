@@ -6,10 +6,10 @@ Six shared libraries, each with a plain C interface loaded through ctypes:
     ``csrc/sw_banded.cu`` (banded Smith-Waterman) and ``csrc/band_build.cu``
     (the band bounds of ``--sw-mode banded``), each compiled by nvcc for
     Hopper (``sm_90a``);
-  * the host BAM/matrix library, ``csrc/genomio.cpp``, the port's own copy
-    of ``native/genomio.cpp`` (its region loader inflates the blocks of all
-    of a plan's chunks across the threads), compiled by g++ with the flags
-    of ``native/build.sh``;
+  * the host BAM/matrix library, ``csrc/genomio.cpp`` (its four BAM loaders
+    share one set of decode passes, and the region loader's inflates the
+    blocks of all of a plan's chunks across the threads), compiled by g++
+    with the flags of ``native/build.sh``;
   * the host CRAM decoder, ``native/cramio.cpp``, compiled and linked as
     ``native/build.sh`` does (zlib, liblzma, libbz2's runtime soname); on a
     machine without liblzma's development files, against the declaration
